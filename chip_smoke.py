@@ -16,11 +16,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
    at an odd shape [2, 33, 37, 5], and time both; the same at the training
    shape [12, 256, 256, 48] in bfloat16;
 4. hold K2 (dx, dA, dB) to its plain version (autograd through the plain
-   forward) at [12, 256, 256, 48] in float32 and bfloat16 and at
-   [2, 33, 37, 5], and time both;
+   forward) at [12, 256, 256, 48] in float32 and bfloat16 and time both;
+   untimed at [2, 33, 37, 5] and at [1, 130, 70, 48], [2, 70, 37, 5] and
+   [1, 70, 40, 8], which cross a strip and a segment border of the kernel's
+   tiling with a width that is no multiple of the strip, on each of the
+   kernel's three paths (C = 48 at compile time, an even C, an odd C);
 5. hold K3 to its plain version (``index_add_`` per sample) at
    [12, 2012, 48] -> [12, 65536, 48] with duplicated indices and at a small
-   odd shape, and time it, the plain version and one ``index_add_`` call;
+   odd shape; time the form the training step runs (no host check of the
+   indices), the public form with the check, the plain version and one
+   ``index_add_`` call; two runs compared bit for bit; small-integer data
+   with ~75 rows per destination, which must equal the plain version
+   exactly; an index out of range, where the public form must raise
+   ``IndexError`` and the unchecked form must leave the bad rows out and
+   equal the plain version of the remaining rows exactly;
 6. build the v1 encoder from ``configs/frl_repr_model_v1.yaml`` with seeded
    random weights, write it as a flax-layout checkpoint with the synthetic
    bindings and stats into a temporary directory;
@@ -68,8 +77,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
 ``--profile-training`` builds the kernels and then, instead of phases 3-12,
 runs three warm training steps, two timed and two under ``torch.profiler``,
 and prints the device's busy time per step against the step's time without
-the profiler, and the kernels that took most of the device's time; it
-prints no result lines. ``--profile-vqvae`` does the same for 20 VQ-VAE
+the profiler, the host synchronisations per step, the kernels that took
+most of the device's time and every kernel of this package; it prints no
+result lines. ``--profile-vqvae`` does the same for 20 VQ-VAE
 train steps, on a resident batch and with the batch's copy to the device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
@@ -123,6 +133,7 @@ TRAIN_SHAPE = (12, 256, 256, 48)
 # 300 * 4 positive neighbours + the 512-pixel negative pool
 SCATTER_SHAPE = (12, 2012, 65536, 48)     # B, N, R = H*W, C
 SCATTER_ODD_SHAPE = (3, 77, 131, 5)
+SCATTER_EXACT_SHAPE = (2, 300, 4099, 5)   # and four destinations in use
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 2, 5
 # the H100's published rates (SXM, dense): device memory and float32
 # outside the tensor cores
@@ -144,6 +155,10 @@ VQ_SUMS_REL_BOUND = 1e-5      # sums, sum(q * x): relative to max |value|
 VQ_TRAIN_EPOCHS, VQ_TRAIN_STEPS = 2, 100
 VQ_TRAIN_LOSS_REL_BOUND = 1e-6
 ODD_SHAPE = (2, 33, 37, 5)
+# K2 walks strips of 32 columns in segments of 64 rows: these cross both
+# borders with a ragged last strip, with C = 48 (compiled in), with an odd C
+# (the scalar path) and with another even C (the vector path, C at run time)
+BWD_BORDER_SHAPES = ((1, 130, 70, 48), (2, 70, 37, 5), (1, 70, 40, 8))
 RANK, COARSE_DILATION, NUM_DIRECTIONS = 4, 3, 4
 T_STEPS = 15          # data.cube_v2.synthetic_bindings' annual window
 SEED = 0
@@ -156,16 +171,16 @@ BF16_ULP = 2.0 ** -7
 # smoothing block runs in bf16, so one-ulp differences of the bank pass
 # through the bf16 gate convs; bound on max |diff| / max |ref|.
 SERVE_REL_BOUND = 2.0 ** -5
-# K3 vs index_add_: float32 sums of rows that share a destination, added in
-# another order (at most a few rows per destination here).
+# K3 vs index_add_ on the card: float32 sums of rows that share a
+# destination; the kernel adds them in ascending order, index_add_'s atomics
+# in any (at most a few rows per destination here).
 SCATTER_BOUND = 1e-5
 # One training step with the kernels vs with their plain versions, same
 # weights and draws: the bf16 smoothing block rounds the bank's output and
 # its gradients to bf16 in both, so the two differ by one bf16 ulp at a few
 # elements in a million; over 3,600 anchors and 174,072 parameters that
 # leaves the loss and the global gradient norm apart by ~1e-7 and ~1e-6
-# relative (as measured on an H100); the bounds leave a 100-fold margin
-# for other draws of the atomics' order.
+# relative (as measured on an H100); the bounds leave a 100-fold margin.
 STEP_LOSS_REL_BOUND = 1e-5
 STEP_GNORM_REL_BOUND = 1e-4
 
@@ -306,17 +321,25 @@ def check_scatter(shape, generator, timed: bool) -> dict:
     idx = torch.randint(0, r, (b, n), device="cuda", generator=generator)
     idx[:, :n // 4] = idx[:, n // 4:2 * (n // 4)]      # duplicated rows
     out = sc.scatter_add_rows(dz, idx, r)
+    again = sc.scatter_add_rows(dz, idx.int(), r, check_index=False)
     torch.cuda.synchronize()
     ref = sc.scatter_add_rows_reference(dz, idx, r)
     res = {"kernel": "scatter_add_rows", "shape": list(shape),
            "dtype": "float32",
            "max_abs_err": (out - ref).abs().max().item(),
-           "bound": SCATTER_BOUND}
+           "bound": SCATTER_BOUND,
+           "runs_bit_identical": bool(torch.equal(out, again))}
+    del out, again, ref
     if timed:
         # one add per scattered element
         res["bound_ms"], res["bound_by"] = bound_ms(
-            (dz, idx.int(), out), float(dz.numel()))
-        res["ms"] = cuda_ms(lambda: sc.scatter_add_rows(dz, idx, r))
+            (dz, idx.int(), torch.empty(b, r, c, device="meta")),
+            float(dz.numel()))
+        # the form the training step runs, then the public form, whose
+        # check of the device's flag synchronises with the host
+        res["ms"] = cuda_ms(lambda: sc.scatter_add_rows(
+            dz, idx, r, check_index=False))
+        res["checked_ms"] = cuda_ms(lambda: sc.scatter_add_rows(dz, idx, r))
         res["plain_ms"] = cuda_ms(
             lambda: sc.scatter_add_rows_reference(dz, idx, r))
         flat = (idx + torch.arange(b, device="cuda")[:, None] * r
@@ -325,10 +348,65 @@ def check_scatter(shape, generator, timed: bool) -> dict:
         res["library_ms"] = cuda_ms(
             lambda: torch.zeros(b * r, c, device="cuda").index_add_(
                 0, flat, rows))
+        # back to back, the host's enqueueing hidden behind the device
+        for key, fn in (
+                ("back_to_back_ms", lambda: sc.scatter_add_rows(
+                    dz, idx, r, check_index=False)),
+                ("library_back_to_back_ms", lambda: torch.zeros(
+                    b * r, c, device="cuda").index_add_(0, flat, rows))):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            fn()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(50):
+                fn()
+            end.record()
+            end.synchronize()
+            res[key] = start.elapsed_time(end) / 50
     log(f"kernel check {json.dumps(res)}")
-    if not res["max_abs_err"] <= SCATTER_BOUND:
+    if not (res["max_abs_err"] <= SCATTER_BOUND
+            and res["runs_bit_identical"]):
         raise AssertionError(f"scatter_add_rows disagrees with its plain "
-                             f"version: {res}")
+                             f"version or with itself: {res}")
+    return res
+
+
+def check_scatter_exact(generator) -> dict:
+    """K3 where every sum is exact in float32: small integers, ~75 rows on
+    each of four destinations per sample. The kernel must equal its plain
+    version bit for bit. Then with indices out of range: the public form
+    raises, the unchecked form leaves those rows out."""
+    import torch
+    from forest_tpu_torch.ops import scatter as sc
+    b, n, r, c = SCATTER_EXACT_SHAPE
+    dz = torch.randint(-3, 4, (b, n, c), device="cuda",
+                       generator=generator).float()
+    dest = torch.tensor([5, 6, 2050, r - 1], device="cuda")
+    idx = dest[torch.randint(0, 4, (b, n), device="cuda",
+                             generator=generator)]
+    out = sc.scatter_add_rows(dz, idx, r)
+    ref = sc.scatter_add_rows_reference(dz, idx, r)
+    res = {"kernel": "scatter_add_rows", "shape": [b, n, r, c],
+           "exact": bool(torch.equal(out, ref)),
+           "rows_per_destination": n / 4}
+    bad = idx.clone()
+    bad[0, 3], bad[1, 7], bad[1, n - 1] = r, -1, r + 12345
+    try:
+        sc.scatter_add_rows(dz, bad, r)
+        res["bad_index_raises"] = False
+    except IndexError:
+        res["bad_index_raises"] = True
+    skipped = sc.scatter_add_rows(dz, bad, r, check_index=False)
+    in_range = (bad >= 0) & (bad < r)
+    kept = sc.scatter_add_rows_reference(
+        dz * in_range[:, :, None], torch.where(in_range, bad, 0), r)
+    torch.cuda.synchronize()
+    res["bad_rows_left_out"] = bool(torch.equal(skipped, kept))
+    log(f"kernel check {json.dumps(res)}")
+    if not (res["exact"] and res["bad_index_raises"]
+            and res["bad_rows_left_out"]):
+        raise AssertionError(f"scatter_add_rows, exact data: {res}")
     return res
 
 
@@ -925,7 +1003,8 @@ def train_and_check(device: str = "cuda") -> dict:
                                          curriculum, draws)
     spatial.bank_mix = sm.bank_mix_reference
     kernel_scatter = sc.scatter_add_rows
-    sc.scatter_add_rows = sc.scatter_add_rows_reference
+    sc.scatter_add_rows = lambda dz, idx, n_rows, check_index=True: \
+        sc.scatter_add_rows_reference(dz, idx, n_rows)
     kernels = (sm.bank_mix, sm.bank_mix_bwd, kernel_scatter)
     try:
         before = [k.launches for k in kernels]
@@ -1234,11 +1313,16 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
-    kernels = {}
+    kernels, syncs = {}, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             n, total = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, total + ev.device_time / 1e3)
+        elif ev.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                         "cudaEventSynchronize"):
+            syncs[ev.name] = syncs.get(ev.name, 0) + 1
+    # the synchronise that ends the profiled window is not the step's
+    syncs["cudaDeviceSynchronize"] = syncs.get("cudaDeviceSynchronize", 0) - 1
     busy_ms = sum(t for _, t in kernels.values())
     n_launch = sum(n for n, _ in kernels.values())
     log(f"profile of {steps} {label} steps: device busy "
@@ -1246,8 +1330,12 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         f"device kernels and copies; the same steps without the profiler "
         f"take {wall_ms / steps:.3f} ms each, so the device is busy "
         f"{100 * busy_ms / wall_ms:.1f} % of a step")
-    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1]
-                               )[:top]:
+    log("host synchronisations per step: "
+        + ", ".join(f"{name} {n / steps:.1f}" for name, n in syncs.items()))
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    ours = [kv for kv in ranked[top:] if any(
+        word in kv[0] for word in ("bank_mix", "scatter_", "vq_"))]
+    for name, (n, t) in ranked[:top] + ours:
         log(f"  {t / steps:8.4f} ms/step  {n / steps:6.1f} x  {name[:110]}")
 
 
@@ -1352,12 +1440,14 @@ def main() -> int:
 
     bwd_f32 = check_bwd(TRAIN_SHAPE, torch.float32, gen, timed=True)  # 4
     bwd_bf16 = check_bwd(TRAIN_SHAPE, torch.bfloat16, gen, timed=True)
-    for dt in (torch.float32, torch.bfloat16):
-        check_bwd(ODD_SHAPE, dt, gen, timed=False)
+    for shape in (ODD_SHAPE,) + BWD_BORDER_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            check_bwd(shape, dt, gen, timed=False)
     torch.cuda.empty_cache()
 
     scat = check_scatter(SCATTER_SHAPE, gen, timed=True)      # phase 5
     check_scatter(SCATTER_ODD_SHAPE, gen, timed=False)
+    check_scatter_exact(gen)
 
     with tempfile.TemporaryDirectory() as d:                  # phase 6
         ckpt, bpath = write_checkpoint(Path(d))
@@ -1383,6 +1473,12 @@ def main() -> int:
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms; K2 f32 at {list(TRAIN_SHAPE)}: "
         f"{bwd_f32['ms']:.4f} ms, plain {bwd_f32['plain_ms']:.4f} ms ({card})")
+    log(f"K2 bf16 at {list(TRAIN_SHAPE)}: {bwd_bf16['ms']:.4f} ms; K3 at "
+        f"{list(SCATTER_SHAPE)}: {scat['ms']:.4f} ms as the training step "
+        f"runs it, {scat['checked_ms']:.4f} ms with the host's check of the "
+        f"indices, one index_add_ {scat['library_ms']:.4f} ms; back to back "
+        f"{scat['back_to_back_ms']:.4f} against "
+        f"{scat['library_back_to_back_ms']:.4f} ms ({card})")
     log(f"train step {train['step_ms_median']:.1f} ms median of "
         f"{TRAIN_STEPS_TIMED} ({card})")
     log(f"K4 vq_core at {list(VQ_SHAPE)}: {core['ms']:.4f} ms, plain "
@@ -1414,7 +1510,11 @@ def main() -> int:
                      f32_bound_ms=bwd_f32["bound_ms"],
                      f32_max_abs_err=bwd_f32["max_abs_err"]),
         kernel_entry("scatter_add_rows", scat,
-                     {"serving": 0, "training": steps["scatter_add_rows"]}),
+                     {"serving": 0, "training": steps["scatter_add_rows"]},
+                     checked_ms=scat["checked_ms"],
+                     back_to_back_ms=scat["back_to_back_ms"],
+                     library_back_to_back_ms=scat[
+                         "library_back_to_back_ms"]),
         kernel_entry("vq_core", core, vq_paths(
             vqvae_training=vqvae["launches"],
             kernel_check=core["path_launches"]),

@@ -7,16 +7,21 @@ neighbours and the shared negative pool); the gradient of that gather is
     out[b, p, c] = sum over j with idx[b, j] == p of dz[b, j, c]
 
 - :func:`scatter_add_rows` is the wrapper of the hand-written CUDA kernel
-  ``csrc/scatter_add_rows.cu`` (one f32 ``atomicAdd`` per element). A CPU
-  tensor goes to the plain version :func:`scatter_add_rows_reference`
-  (``index_add_`` per sample); a CUDA tensor launches the kernel or raises.
-  ``scatter_add_rows.launches`` counts the launches. Rows that share a
-  destination are added in an order that varies from run to run on the
-  card, so sums over duplicated indices are reproducible only to float32
-  rounding.
+  in ``csrc/scatter_add_rows.cu``, one launch: a block owns a tile of
+  output rows of one sample, scans that sample's indices itself, adds the
+  rows that land in its tile in ascending j in registers and stores the
+  tile once, zeros included. No atomic, no scratch memory, ``out`` from
+  ``torch.empty`` and never read: the bytes moved to device memory are the
+  bound's (``out`` once, ``dz`` and the indices once), and the result is
+  the same bit for bit in every run. The scan is cheap while N is a few
+  thousand (the source says where it stops). A CPU tensor goes to the plain
+  version :func:`scatter_add_rows_reference` (``index_add_`` per sample,
+  which on the CPU adds in ascending j too); a CUDA tensor launches the
+  kernel or raises. ``scatter_add_rows.launches`` counts the launches.
 - :func:`extract_rows` is a ``torch.autograd.Function``: the forward is a
-  plain gather, the backward is :func:`scatter_add_rows`, cast back to the
-  grid's dtype.
+  plain gather, the backward is :func:`scatter_add_rows` without its host
+  check of the indices (they passed the forward's gather), cast back to
+  the grid's dtype.
 - :func:`extract_at_coords` takes a [B, H, W, C] grid and (row, col)
   coordinates.
 
@@ -25,11 +30,24 @@ package's version exist only for the TPU's matrix unit and are not here.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
 from forest_tpu_torch.ops._cuda_build import load_library
+
+
+@functools.cache
+def _kernel():
+    """The C function of ``csrc/scatter_add_rows.cu``, built at first use."""
+    fn = load_library("scatter_add_rows").scatter_add_rows_f32
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_index(flat_idx: torch.Tensor, n_rows: int) -> None:
@@ -54,12 +72,24 @@ def scatter_add_rows_reference(dz: torch.Tensor, flat_idx: torch.Tensor,
 
 
 def scatter_add_rows(dz: torch.Tensor, flat_idx: torch.Tensor,
-                     n_rows: int) -> torch.Tensor:
+                     n_rows: int, *, check_index: bool = True
+                     ) -> torch.Tensor:
     """out[b, p, c] = sum over j with flat_idx[b, j] == p of dz[b, j, c].
 
-    dz [B, N, C] (taken in float32), flat_idx [B, N] integers in
-    [0, n_rows); out [B, n_rows, C] float32. An index outside the range
-    raises ``IndexError`` before anything is launched."""
+    dz [B, N, C] (taken in float32), flat_idx [B, N] int32 or int64 in
+    [0, n_rows); out [B, n_rows, C] float32.
+
+    An index outside the range never writes outside ``out``. What the
+    caller learns of it depends on ``check_index``:
+
+    - ``True`` (the default, for direct callers): ``IndexError``. On a CPU
+      tensor it is raised before anything is computed; on a CUDA tensor the
+      kernel leaves the row out and raises a flag on the device, which
+      this function reads back after the launch (one host synchronise).
+    - ``False`` (the backward of :func:`extract_rows`): on a CUDA tensor the
+      flag is not read, nothing synchronises, and a row with a bad index is
+      left out of the sum silently. A CPU tensor is checked all the same.
+    """
     if dz.dim() != 3 or flat_idx.shape != dz.shape[:2]:
         raise ValueError(f"scatter_add_rows: dz {tuple(dz.shape)} must be "
                          f"[B, N, C] and flat_idx {tuple(flat_idx.shape)} "
@@ -78,23 +108,30 @@ def scatter_add_rows(dz: torch.Tensor, flat_idx: torch.Tensor,
     bsz, n, c = dz.shape
     if n_rows < 1 or n_rows > 2 ** 31 - 1:
         raise ValueError(f"scatter_add_rows: n_rows={n_rows}")
-    _check_index(flat_idx, n_rows)
-    dz = dz.float().contiguous()
-    idx = flat_idx.to(torch.int32).contiguous()
-    out = torch.zeros(bsz, n_rows, c, dtype=torch.float32, device=dz.device)
     if dz.numel() == 0:
-        return out
-    fn = load_library("scatter_add_rows").scatter_add_rows_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dz.device):
+        return torch.zeros(bsz, n_rows, c, dtype=torch.float32,
+                           device=dz.device)
+    dz = dz.float().contiguous()
+    idx = flat_idx.contiguous()
+    out = torch.empty(bsz, n_rows, c, dtype=torch.float32, device=dz.device)
+    # one flag per sample, written by the kernel: an index out of range
+    bad = torch.empty(bsz, dtype=torch.int32, device=dz.device)
+    # this wrapper's time on the host is part of every call's: the device
+    # guard is entered only where it changes the device
+    guard = (contextlib.nullcontext()
+             if dz.device.index == torch.cuda.current_device()
+             else torch.cuda.device(dz.device))
+    with guard:
         stream = torch.cuda.current_stream(dz.device).cuda_stream
-        err = fn(dz.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz, n,
-                 n_rows, c, stream)
+        err = _kernel()(dz.data_ptr(), idx.data_ptr(),
+                        int(idx.dtype == torch.int64), out.data_ptr(),
+                        bad.data_ptr(), bsz, n, n_rows, c, stream)
     if err != 0:
         raise RuntimeError(f"scatter_add_rows launch failed: cudaError {err}")
     scatter_add_rows.launches += 1
+    if check_index and bad.any().item():
+        raise IndexError(f"scatter_add_rows: an index lies outside "
+                         f"[0, {n_rows})")
     return out
 
 
@@ -113,13 +150,15 @@ class _ExtractRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (flat_idx,) = ctx.saved_tensors
-        dg = scatter_add_rows(ct, flat_idx, ctx.n_rows)
+        dg = scatter_add_rows(ct, flat_idx, ctx.n_rows,
+                              check_index=False)
         return dg.to(ctx.grid_dtype), None
 
 
 def extract_rows(grid: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
     """grid [B, R, C], flat_idx [B, N] -> [B, N, C]; the backward is
-    :func:`scatter_add_rows`."""
+    :func:`scatter_add_rows` with ``check_index=False``: on a CUDA tensor it
+    makes no host synchronise."""
     return _ExtractRows.apply(grid, flat_idx)
 
 

@@ -129,8 +129,27 @@ def test_depthwise_bank_conv_matches_jax(dilation):
 BWD_CASES = [(2, 13, 21, 5, 4, 3), (1, 16, 24, 8, 4, 3), (1, 9, 23, 5, 2, 2)]
 
 
-def _bwd_inputs(rng, b, h, w, c, nd):
-    x, a_w, b_w = bank_mix_inputs(rng, b, h, w, c, nd=nd)
+# (B, H, W, C, num_directions, coarse_dilation, R): what the one-pass kernel
+# has to get right at its edges -- H below 2 dc + 1, W below dc, dc = 1
+# (the +-1 and +-dc rows coincide), R = 1, 3 and 6 (its scalar path, and
+# more ranks than one pass of four), C = 5, and a shape that crosses a
+# 32-column strip and a 64-row segment with a ragged last strip; the last
+# has an even C that is not the 48 the kernel has a compiled-in path for
+BWD_EDGE_CASES = [
+    (1, 5, 9, 5, 4, 3, 4),
+    (2, 9, 2, 5, 4, 3, 4),
+    (1, 3, 2, 8, 4, 3, 4),
+    (1, 9, 11, 5, 4, 1, 4),
+    (1, 9, 11, 5, 4, 3, 1),
+    (1, 9, 11, 5, 4, 3, 3),
+    (1, 9, 11, 6, 3, 2, 6),
+    (1, 70, 37, 5, 4, 3, 4),
+    (1, 70, 40, 8, 4, 3, 4),
+]
+
+
+def _bwd_inputs(rng, b, h, w, c, nd, r=4):
+    x, a_w, b_w = bank_mix_inputs(rng, b, h, w, c, nd=nd, r=r)
     g = rng.normal(size=x.shape).astype(np.float32)
     return x, a_w, b_w, g
 
@@ -160,6 +179,36 @@ def test_bank_mix_bwd_matches_jax_grad_of_xla(b, h, w, c, nd, dc):
 def test_bank_mix_bwd_matches_pallas_interpret(b, h, w, c, nd, dc):
     x, a_w, b_w, g = _bwd_inputs(np.random.default_rng(30 + h), b, h, w, c,
                                  nd)
+    ref = _jax_grads(lambda *a: jsm.bank_mix(
+        *a, num_directions=nd, coarse_dilation=dc, interpret=True),
+        x, a_w, b_w, g)
+    out = tsm.bank_mix_bwd(t(x), t(a_w), t(b_w), t(g), num_directions=nd,
+                           coarse_dilation=dc)
+    for got, want, name in zip(out, ref, ("dx", "dA", "dB")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,w,c,nd,dc,r", BWD_EDGE_CASES)
+def test_bank_mix_bwd_edge_shapes_match_jax_grad_of_xla(b, h, w, c, nd, dc,
+                                                        r):
+    x, a_w, b_w, g = _bwd_inputs(np.random.default_rng(40 + h + r), b, h, w,
+                                 c, nd, r)
+    ref = _jax_grads(lambda *a: jsm.bank_mix_xla(
+        *a, num_directions=nd, coarse_dilation=dc), x, a_w, b_w, g)
+    out = tsm.bank_mix_bwd(t(x), t(a_w), t(b_w), t(g), num_directions=nd,
+                           coarse_dilation=dc)
+    for got, want, name in zip(out, ref, ("dx", "dA", "dB")):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,w,c,nd,dc,r", BWD_EDGE_CASES[:6])
+def test_bank_mix_bwd_edge_shapes_match_pallas_interpret(b, h, w, c, nd, dc,
+                                                         r):
+    x, a_w, b_w, g = _bwd_inputs(np.random.default_rng(50 + h + r), b, h, w,
+                                 c, nd, r)
     ref = _jax_grads(lambda *a: jsm.bank_mix(
         *a, num_directions=nd, coarse_dilation=dc, interpret=True),
         x, a_w, b_w, g)
@@ -247,6 +296,39 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, b, h,
         bound = 1e-5 if dtype == torch.float32 else \
             2 ** -7 * max(1.0, want.abs().max().item())
         assert (leaf.grad.float() - want).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,nd,dc,r",
+                         BWD_EDGE_CASES + [(1, 130, 70, 48, 4, 3, 4)])
+def test_bwd_kernel_edge_shapes_on_card(cuda_device, dtype, b, h, w, c, nd,
+                                        dc, r):
+    x, a_w, b_w, g = (t(v).to(cuda_device, dtype) for v in _bwd_inputs(
+        np.random.default_rng(13), b, h, w, c, nd, r))
+    kw = dict(num_directions=nd, coarse_dilation=dc)
+    before = tsm.bank_mix_bwd.launches
+    got = tsm.bank_mix_bwd(x, a_w, b_w, g, **kw)
+    again = tsm.bank_mix_bwd(x, a_w, b_w, g, **kw)
+    torch.cuda.synchronize()
+    assert tsm.bank_mix_bwd.launches == before + 2
+    ref = tsm.bank_mix_bwd_reference(x, a_w, b_w, g, **kw)
+    # f32: reordered f32 sums; bf16: one bf16 ulp of the largest magnitude
+    for u, v, want in zip(got, again, ref):
+        assert torch.equal(u, v)            # no atomics: the same bits
+        want = want.float()
+        bound = 1e-5 if dtype == torch.float32 else \
+            2 ** -7 * max(1.0, want.abs().max().item())
+        assert (u.float() - want).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_refuses_what_does_not_fit_a_block_on_card(cuda_device):
+    x = torch.zeros(1, 4, 4, 2, device=cuda_device)
+    a_w = torch.zeros(1, 4, 4, 8, 4, device=cuda_device)
+    b_w = torch.zeros(1, 4, 4, 2, 4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="coarse_dilation <= 19"):
+        tsm.bank_mix_bwd(x, a_w, b_w, x, coarse_dilation=20)
 
 
 @pytest.mark.cuda
