@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-training   # phases 1, 2 and a profile
     python3 chip_smoke.py --profile-vqvae      # the same for the VQ-VAE step
+    python3 chip_smoke.py --profile-vq-core    # K4's time split by kernel
 
 Phases, each of which passes or raises (any failure exits non-zero):
 
@@ -14,7 +15,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
 3. hold K1 to its plain PyTorch version on the card at the serving shape
    [8, 256, 256, 48] (R = 4, coarse dilation 3) in float32 and bfloat16 and
    at an odd shape [2, 33, 37, 5], and time both; the same at the training
-   shape [12, 256, 256, 48] in bfloat16;
+   shape [12, 256, 256, 48] in bfloat16; untimed at [1, 70, 37, 48],
+   [1, 40, 70, 8] and [2, 40, 37, 5], which cross a strip and a segment
+   border of the kernel's tiling with a ragged last strip, on each of its
+   three paths; two runs bit-identical at every shape;
 4. hold K2 (dx, dA, dB) to its plain version (autograd through the plain
    forward) at [12, 256, 256, 48] in float32 and bfloat16 and time both;
    untimed at [2, 33, 37, 5] and at [1, 130, 70, 48], [2, 70, 37, 5] and
@@ -49,13 +53,18 @@ Phases, each of which passes or raises (any failure exits non-zero):
    once per step;
 9. hold K4 ``ops.vq.vq_core`` to its plain version at the bench shape
    N 131072, D 128, K 256 with ``with_qx``, at the train step's (64, 128,
-   256) and at (333, 24, 17) and (5, 7, 3): the indices by a rule stated in
+   256), at N 1, 63, 65, 127, 128, 129 and 845 (the edges of its one-launch
+   path and a cut between segments of its statistics pass) and at (333, 24,
+   17) and (5, 7, 3): its indices equal K5's bit for bit; the indices by a
+   rule stated in
    float64 (``argmin_rule``), q and counts exactly, sums and sum(q * x) to
    1e-5 relative; a NaN input row and a NaN codebook row; small-integer
    data with duplicated codes, where every output must equal the plain
    version's bit for bit; two runs bit-identical in every output; an empty
    input. Timed against the plain version and a composition of PyTorch
-   calls for the same outputs (TF32 off);
+   calls for the same outputs (TF32 off); then its time split by kernel
+   (``torch.profiler``), its launches per call (one at N 64) and its time
+   from call to return, at the bench shape and at (64, 128, 256);
 10. the same for K5 ``ops.vq.vq_assign`` in float32 and with bfloat16
     operands; its float32 indices must equal K4's exactly;
 11. hold K6 and K7 (``ops.vq_variants.make_assign`` / ``make_assign_t``) to
@@ -74,6 +83,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
     its npz, whose usage must sum to steps x 64; 50 timed steps on a
     resident batch.
 
+``--profile-vq-core`` prints only phase 9's split of K4 by kernel.
 ``--profile-training`` builds the kernels and then, instead of phases 3-12,
 runs three warm training steps, two timed and two under ``torch.profiler``,
 and prints the device's busy time per step against the step's time without
@@ -145,6 +155,9 @@ PEAK_BF16_FLOPS = 989e12      # tensor cores, dense
 VQ_SHAPE = (131072, 128, 256)             # N, D, K
 VQ_STEP_SHAPE = (64, 128, 256)
 VQ_ODD_SHAPES = ((333, 24, 17), (5, 7, 3))
+# the edges of vq_core's one-launch path (N <= 128) and a cut between the
+# statistics pass's segments (256 rows)
+VQ_EDGE_N = (1, 63, 65, 127, 128, 129, 845)
 # Kernel vs plain version of the argmin, stated in float64: the kernel sums
 # the 128 products of a distance in another order than torch.matmul, so a row
 # whose two best codes lie within float32 rounding of each other may get
@@ -159,6 +172,8 @@ ODD_SHAPE = (2, 33, 37, 5)
 # borders with a ragged last strip, with C = 48 (compiled in), with an odd C
 # (the scalar path) and with another even C (the vector path, C at run time)
 BWD_BORDER_SHAPES = ((1, 130, 70, 48), (2, 70, 37, 5), (1, 70, 40, 8))
+# K1 walks strips of 32 columns in segments of 32 rows: the same three paths
+FWD_BORDER_SHAPES = ((1, 70, 37, 48), (1, 40, 70, 8), (2, 40, 37, 5))
 RANK, COARSE_DILATION, NUM_DIRECTIONS = 4, 3, 4
 T_STEPS = 15          # data.cube_v2.synthetic_bindings' annual window
 SEED = 0
@@ -251,12 +266,15 @@ def check_fwd(shape, dtype, generator, timed: bool) -> dict:
     x, a_w, b_w = kernel_inputs(shape, dtype, generator)
     kw = dict(num_directions=NUM_DIRECTIONS, coarse_dilation=COARSE_DILATION)
     out = sm.bank_mix(x, a_w, b_w, **kw)
+    again = sm.bank_mix(x, a_w, b_w, **kw)
     torch.cuda.synchronize()
     ref = sm.bank_mix_reference(x, a_w, b_w, **kw)
     res = {"kernel": "bank_mix_fwd", "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-           "bound": _bound(dtype, ref.float().abs().max().item())}
+           "bound": _bound(dtype, ref.float().abs().max().item()),
+           "runs_bit_identical": bool(torch.equal(out, again))}
+    del again
     del ref
     if timed:
         k, r = 2 * NUM_DIRECTIONS, RANK
@@ -268,9 +286,10 @@ def check_fwd(shape, dtype, generator, timed: bool) -> dict:
         res["plain_ms"] = cuda_ms(
             lambda: sm.bank_mix_reference(x, a_w, b_w, **kw), runs=5)
     log(f"kernel check {json.dumps(res)}")
-    if not res["max_abs_err"] <= res["bound"]:
+    if not (res["max_abs_err"] <= res["bound"]
+            and res["runs_bit_identical"]):
         raise AssertionError(f"bank_mix_fwd disagrees with its plain "
-                             f"version: {res}")
+                             f"version or with itself: {res}")
     return res
 
 
@@ -494,22 +513,34 @@ def check_vq_core(generator) -> dict:
     x, c = vq_inputs(VQ_SHAPE, generator)
     n, d, k = VQ_SHAPE
     runs = [vq.vq_core(x, c, with_qx=True) for _ in range(2)]
-    plain = vq.vq_core(x, c)
+    without_qx = vq.vq_core(x, c)       # the kernel without sum(q * x)
+    assign_idx = vq.vq_assign(x, c)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*runs)) and all(
-        torch.equal(a, b) for a, b in zip(plain, runs[0]))
+        torch.equal(a, b) for a, b in zip(without_qx, runs[0]))
     res = check_core_outputs(x, c, runs[0], True)
     # the parity gate of the JAX package: the same function on the CPU
     cpu_idx = vq.vq_core_reference(x.cpu(), c.cpu())[0]
     res.update(kernel="vq_core", two_runs_bit_identical=bool(same),
+               idx_equals_vq_assign=bool(torch.equal(runs[0][0],
+                                                     assign_idx)),
                idx_mismatch_rows_vs_cpu=int(
                    (runs[0][0].cpu() != cpu_idx).sum().item()))
-    ok = res["ok"] and same
-    for shape in (VQ_STEP_SHAPE,) + VQ_ODD_SHAPES:
+    ok = res["ok"] and same and res["idx_equals_vq_assign"]
+    edges = [(m, d, k) for m in VQ_EDGE_N]
+    for shape in (VQ_STEP_SHAPE,) + tuple(edges) + VQ_ODD_SHAPES:
         xs, cs = vq_inputs(shape, generator)
-        small = check_core_outputs(xs, cs, vq.vq_core(xs, cs, True), True)
+        got = vq.vq_core(xs, cs, True)
+        again = vq.vq_core(xs, cs, True)
+        small = check_core_outputs(xs, cs, got, True)
+        small.update(
+            runs_bit_identical=all(torch.equal(a, b)
+                                   for a, b in zip(got, again)),
+            idx_equals_vq_assign=bool(torch.equal(got[0],
+                                                  vq.vq_assign(xs, cs))))
         log(f"kernel check {json.dumps(dict(small, kernel='vq_core'))}")
-        ok = ok and small["ok"] and small["idx_mismatch_rows"] == 0
+        ok = ok and small["ok"] and small["idx_mismatch_rows"] == 0 and \
+            small["runs_bit_identical"] and small["idx_equals_vq_assign"]
 
     xn, cn = nan_inputs(generator)                     # the NaN rule
     got, ref = vq.vq_core(xn, cn), vq.vq_core_reference(xn, cn)
@@ -529,7 +560,7 @@ def check_vq_core(generator) -> dict:
                empty_ok=bool(empty_ok))
     ok = ok and nan_ok and ties_ok and empty_ok
 
-    idx, q, counts, sums = plain
+    idx, q, counts, sums = without_qx
     res["bound_ms"], res["bound_by"] = bound_ms(
         (x, c, idx, q, counts, sums), 2.0 * n * k * d)
     vq.vq_core.launches = 0       # the timed runs: the op called directly
@@ -547,6 +578,16 @@ def check_vq_core(generator) -> dict:
     res["library_ms"] = cuda_ms(composition)
     res["library_is"] = "a composition: addmm, argmin, gather, bincount, " \
                         "index_add_"
+    res["split"] = vq_core_split(generator)
+    step = res["split"]["x".join(map(str, VQ_STEP_SHAPE))]
+    res["launches_per_call"] = {key: v["launches_per_call"]
+                                for key, v in res["split"].items()}
+    res["step_shape_device_ms"] = step["device_ms_per_call"]
+    res["step_shape_host_ms"] = step["host_ms_call_to_return"]
+    for key, launches in res["launches_per_call"].items():
+        rows, _, codes = map(int, key.split("x"))
+        if launches != vq.vq_core_launches(rows, codes):
+            ok = False
     log(f"kernel check {json.dumps(res)}")
     if not ok:
         raise AssertionError(f"vq_core disagrees with its plain version: "
@@ -1246,7 +1287,8 @@ def vqvae_train_and_check(device: str = "cuda") -> dict:
         if not (run_dir / "ckpt" / "ckpt_last.msgpack").exists():
             raise AssertionError("no ckpt_last.msgpack")
 
-        out = export_codebook.export(str(zarr), str(run_dir))
+        out = export_codebook.export(str(zarr), str(run_dir),
+                                     device="cuda")
         z = np.load(out, allow_pickle=False)
         kk, tt = cfg["codebook_size"], 5
         shapes = {n: tuple(z[n].shape) for n in ("cont", "cats", "summary",
@@ -1339,6 +1381,51 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         log(f"  {t / steps:8.4f} ms/step  {n / steps:6.1f} x  {name[:110]}")
 
 
+def vq_core_split(generator, shapes=(VQ_SHAPE, VQ_STEP_SHAPE),
+                  calls: int = 20) -> dict:
+    """K4 as the VQ-VAE step calls it (no sum(q * x)), at each shape: the
+    device time of each of its kernels per call (``torch.profiler``, kernel
+    rows only), the launches per call, and the wrapper's time from call to
+    return on an idle device (median)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from forest_tpu_torch.ops import vq
+    out = {}
+    for shape in shapes:
+        x, c = vq_inputs(shape, generator)
+        for _ in range(3):
+            vq.vq_core(x, c)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            vq.vq_core(x, c)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                vq.vq_core(x, c)
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = ev.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split(" ")[-1]
+                n, total = kernels.get(name, (0, 0.0))
+                kernels[name] = (n + 1, total + ev.device_time / 1e3)
+        host.sort()
+        out["x".join(map(str, shape))] = {
+            "kernels_ms_per_call": {k: t / calls
+                                    for k, (_, t) in kernels.items()},
+            "device_ms_per_call": sum(t for _, t in kernels.values()) / calls,
+            "launches_per_call": sum(n for n, _ in kernels.values()) / calls,
+            "host_ms_call_to_return": host[len(host) // 2]}
+    log(f"vq_core split: {json.dumps(out)}")
+    return out
+
+
 def profile_training(device: str = "cuda") -> None:
     """Where an FRL type-pathway training step's time goes."""
     t = build_train_step(device)
@@ -1426,6 +1513,9 @@ def main() -> int:
     if sys.argv[1:] == ["--profile-vqvae"]:
         profile_vqvae()
         return 0
+    if sys.argv[1:] == ["--profile-vq-core"]:
+        vq_core_split(torch.Generator(device="cuda").manual_seed(SEED))
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -1434,8 +1524,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32 = check_fwd(SERVE_SHAPE, torch.float32, gen, timed=True)  # phase 3
     bf16 = check_fwd(SERVE_SHAPE, torch.bfloat16, gen, timed=True)
-    for dt in (torch.float32, torch.bfloat16):
-        check_fwd(ODD_SHAPE, dt, gen, timed=False)
+    for shape in (ODD_SHAPE,) + FWD_BORDER_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            check_fwd(shape, dt, gen, timed=False)
     fwd_train = check_fwd(TRAIN_SHAPE, torch.bfloat16, gen, timed=True)
 
     bwd_f32 = check_bwd(TRAIN_SHAPE, torch.float32, gen, timed=True)  # 4
@@ -1471,7 +1562,9 @@ def main() -> int:
     log(f"vqvae training: {json.dumps(vqvae)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
-        f"{f32['plain_ms']:.4f} ms; K2 f32 at {list(TRAIN_SHAPE)}: "
+        f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
+        f"{list(TRAIN_SHAPE)} bf16 {fwd_train['ms']:.4f} ms; K2 f32 at "
+        f"{list(TRAIN_SHAPE)}: "
         f"{bwd_f32['ms']:.4f} ms, plain {bwd_f32['plain_ms']:.4f} ms ({card})")
     log(f"K2 bf16 at {list(TRAIN_SHAPE)}: {bwd_bf16['ms']:.4f} ms; K3 at "
         f"{list(SCATTER_SHAPE)}: {scat['ms']:.4f} ms as the training step "
@@ -1482,7 +1575,11 @@ def main() -> int:
     log(f"train step {train['step_ms_median']:.1f} ms median of "
         f"{TRAIN_STEPS_TIMED} ({card})")
     log(f"K4 vq_core at {list(VQ_SHAPE)}: {core['ms']:.4f} ms, plain "
-        f"{core['plain_ms']:.4f} ms; K5 vq_assign f32 "
+        f"{core['plain_ms']:.4f} ms; at {list(VQ_STEP_SHAPE)} "
+        f"{core['step_shape_device_ms']:.4f} ms on the device in "
+        f"{core['launches_per_call']['x'.join(map(str, VQ_STEP_SHAPE))]:.0f} "
+        f"launch(es), {core['step_shape_host_ms']:.4f} ms from call to "
+        f"return; K5 vq_assign f32 "
         f"{assign['f32']['ms']:.4f} ms, bf16 operands "
         f"{assign['bf16']['ms']:.4f} ms; K6 row-major "
         f"{variants['vq_variant_rows']['ms']:.4f} ms, K7 transposed "
@@ -1521,7 +1618,12 @@ def main() -> int:
             with_qx_ms=core["with_qx_ms"], library_is=core["library_is"],
             idx_mismatch_rows=core["idx_mismatch_rows"],
             idx_mismatch_rows_vs_cpu=core["idx_mismatch_rows_vs_cpu"],
-            step_shape_ms=vqvae["vq_core_ms_at_step_shape"]),
+            idx_equals_vq_assign=core["idx_equals_vq_assign"],
+            step_shape_ms=vqvae["vq_core_ms_at_step_shape"],
+            step_shape_device_ms=core["step_shape_device_ms"],
+            step_shape_host_ms=core["step_shape_host_ms"],
+            launches_per_call=core["launches_per_call"],
+            split=core["split"]),
         kernel_entry("vq_assign", assign["f32"], vq_paths(
             kernel_check=assign["f32"]["path_launches"]
             + assign["bf16"]["path_launches"]),

@@ -1,14 +1,15 @@
 """Codebook export: decode every code to original units.
 
 Port of ``forest_tpu/eval/export_codebook.py`` (it runs no kernel: the
-decoder is a handful of small dense layers, evaluated on the CPU): decode
-all K codebook entries as length-T sequences, de-normalize continuous
-channels via the dataset's cont stats, argmax categorical heads back to raw
-codes via the schema's dense->raw maps (NaN for MISS/UNK), attach cumulative
-code usage from the train state, and write NPZ + optional CSVs.
+decoder is a handful of small dense layers, evaluated on ``device``, the
+card unless the caller asks for the CPU): decode all K codebook entries as
+length-T sequences, de-normalize continuous channels via the dataset's cont
+stats, argmax categorical heads back to raw codes via the schema's
+dense->raw maps (NaN for MISS/UNK), attach cumulative code usage from the
+train state, and write NPZ + optional CSVs.
 
 Run: python -m forest_tpu_torch.eval.export_codebook --run-dir RUN --zarr CUBE \
-         [--out OUT.npz] [--csv]
+         [--out OUT.npz] [--csv] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -53,15 +54,22 @@ def load_model_and_ds(zarr_path: str, run_dir: str,
     return model, RestoredState(raw), ds, meta
 
 
-def decode_codebook_sequences(model: VQVAE, params) -> Tuple[
+def decode_codebook_sequences(model: VQVAE, params, device="cuda") -> Tuple[
         np.ndarray, Dict[str, np.ndarray], np.ndarray]:
     """``params``: the flax-layout tree of a checkpoint of either
-    package."""
+    package. The model is moved to ``device`` and decodes there; without a
+    card, ``"cuda"`` raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("export_codebook: no CUDA device; pass "
+                           "device='cpu' (--device cpu) to decode on the CPU")
     model.load_state_dict(params_from_flax(params), strict=True)
+    model.to(device)
     with torch.no_grad():
         cont, cat_logits, canopy = model.decode_codebook()
-    return (cont.numpy(), {k: v.numpy() for k, v in cat_logits.items()},
-            canopy.numpy())
+    return (cont.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in cat_logits.items()},
+            canopy.cpu().numpy())
 
 
 def denorm_continuous_KTC(cont_pred: np.ndarray, cont_names,
@@ -105,10 +113,11 @@ def code_summary(usage: np.ndarray, canopy: np.ndarray) -> np.ndarray:
 
 
 def export(zarr_path: str, run_dir: str, out: str = None,
-           write_csv: bool = False) -> Path:
+           write_csv: bool = False, device="cuda") -> Path:
     model, state, ds, meta = load_model_and_ds(zarr_path, run_dir)
     years = np.asarray(ds.ds["years"])
-    cont, cat_logits, canopy = decode_codebook_sequences(model, state.params)
+    cont, cat_logits, canopy = decode_codebook_sequences(model, state.params,
+                                                         device)
     cont_dn = denorm_continuous_KTC(cont, ds.cont_names, ds.cont_stats)
     cont_KT, code_id, year = flatten_to_KT(cont_dn, years)
     cats = decode_cats_KTC(cat_logits, ds.cat_names, ds.cat_maps)
@@ -144,8 +153,10 @@ def main(argv=None):
     ap.add_argument("--run-dir", required=True)
     ap.add_argument("--out", default=None)
     ap.add_argument("--csv", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="where the decoder runs (default: cuda)")
     a = ap.parse_args(argv)
-    p = export(a.zarr, a.run_dir, a.out, a.csv)
+    p = export(a.zarr, a.run_dir, a.out, a.csv, a.device)
     print(f"wrote {p}")
 
 

@@ -13,6 +13,15 @@ the JAX package:
   goes to the plain versions; a CUDA tensor launches the kernels or raises.
   ``bank_mix.launches`` and ``bank_mix_bwd.launches`` count the launches.
 
+The forward is one kernel and one pass: a block walks down a strip of 32
+pixel columns, keeps a ring of 2 dc + 2 rows of x in shared memory (filled
+one row ahead with ``cp.async``), reads A and B of a row once with 16-byte
+loads straight into registers (eight lanes a pixel, channel pairs) and
+stores each output once. It refuses (``RuntimeError`` naming the limit) a
+shape of which one pixel column with its halo does not fit a block:
+``(2 dc + 2) * (1 + 2 dc) * pad(C) * itemsize`` above 232,448 bytes of
+shared memory (:func:`fwd_min_shared_bytes`).
+
 The backward is one kernel and one pass: a block walks down a strip of
 pixel columns, reads g, A and B of a row once into registers, stages that
 row's products g * M_k and a ring of 2 dc + 2 rows of x in shared memory,
@@ -20,11 +29,13 @@ and writes dx, dA and dB together, dx through a ring of 2 dc + 1 rows of
 accumulators in shared memory; no atomics, float32 accumulation, one
 rounding at each store. Its bound is its bytes (every tensor once: 0.56 ms
 in float32, 0.28 ms in bfloat16 at [12, 256, 256, 48] on an H100 at 3.35
-TB/s). It has three paths, chosen in the C function from the shape: R = 4,
-K = 8 and C = 48 (the shipped model's width, compiled in), the same with any
-other even C, and a scalar path for every other R, K and C. It refuses (``RuntimeError`` naming the limit) a shape of which one
-pixel column with its halo does not fit a block: ``coarse_dilation`` above
-19, or ``(1 + 2 dc) * 4 * (pad(K C) + (4 dc + 3) pad(C))`` above 232,448
+TB/s). Both kernels have three paths, chosen in the C function from the
+shape: R = 4, K = 8 and C = 48 (the shipped model's width, compiled in),
+the same with any other even C, and a scalar path for every other R, K and
+C. The backward refuses (``RuntimeError`` naming the limit) a shape of
+which one pixel column with its halo does not fit a block:
+``coarse_dilation`` above 19, or
+``(1 + 2 dc) * 4 * (pad(K C) + (4 dc + 3) pad(C))`` above 232,448
 bytes of shared memory, ``pad(n)`` being n rounded up to 8 modulo 16, or
 to 16 modulo 32 where R = 4, K = 8 and C is even (C up to about 1,000 at
 K = 8 and dc = 3).
@@ -32,6 +43,7 @@ K = 8 and dc = 3).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -141,7 +153,30 @@ def _check_kernel_args(x, a_w, b_w, nd: int, dc: int) -> None:
         raise ValueError("bank_mix: x, a_w and b_w must be contiguous")
 
 
+def _pad_to(n: int, residue: int, modulus: int) -> int:
+    return -(-(n - residue) // modulus) * modulus + residue
+
+
+def fwd_min_shared_bytes(c: int, coarse_dilation: int,
+                         dtype: torch.dtype = torch.float32,
+                         main_path: bool = True) -> int:
+    """Shared memory of ``bank_mix_fwd``'s narrowest strip, one pixel
+    column and its halo: ``(2 dc + 2) * (1 + 2 dc) * pad(C) * itemsize``.
+    ``main_path`` (R = 4, K = 8, C even) pads C to 16 modulo 32 words in
+    float32 and 8 modulo 16 words in bfloat16, the scalar path to 8 modulo
+    16 elements. The kernel refuses a shape above 232,448 bytes."""
+    dc = coarse_dilation
+    size = torch.empty((), dtype=dtype).element_size()
+    if main_path and c % 2 == 0:
+        pad = _pad_to(c, 16, 32) if size == 4 else 2 * _pad_to(c // 2, 8, 16)
+    else:
+        pad = _pad_to(c, 8, 16)
+    return (2 * dc + 2) * (1 + 2 * dc) * pad * size
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_fn(stem: str, dtype: torch.dtype, n_pointers: int):
+    """The C function of ``stem`` for ``dtype``, typed once per process."""
     lib = load_library(stem)
     fn = getattr(lib, f"{stem}_{_KERNEL_DTYPES[dtype]}")
     fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7
@@ -163,9 +198,15 @@ def _launch_fwd(x, a_w, b_w, nd: int, dc: int) -> torch.Tensor:
         err = fn(x.data_ptr(), a_w.data_ptr(), b_w.data_ptr(),
                  out.data_ptr(), b, h, w, c, nd, a_w.shape[-1], dc, stream)
     if err != 0:
-        # 1 (cudaErrorInvalidValue): an image row W*C above 65535 * 256 or
-        # B*H above 2^31 - 1, the limits of the kernel's grid
-        raise RuntimeError(f"bank_mix_fwd launch failed: cudaError {err}")
+        need = fwd_min_shared_bytes(c, dc, x.dtype,
+                                    a_w.shape[-1] == 4 and nd == 4)
+        raise RuntimeError(
+            f"bank_mix_fwd launch failed: cudaError {err}"
+            + (": one pixel column with its halo must fit a block, i.e. "
+               "(2 dc + 2) * (1 + 2 dc) * pad(C) * itemsize <= 232448 bytes "
+               f"of shared memory; got C={c}, dc={dc}: {need} bytes (or "
+               "more than 2^31 - 1 blocks)"
+               if err == 1 else ""))
     bank_mix.launches += 1
     return out
 

@@ -31,6 +31,7 @@ with a rule stated in float64.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -39,8 +40,11 @@ import torch.nn.functional as F
 from forest_tpu_torch.ops._cuda_build import load_library
 
 _TILE_ROWS = 128            # rows of x per block in csrc/vq_tile.cuh
-_SEGMENT_ROWS = 4096        # rows per block of the statistics pass, at least
-_MAX_SEGMENTS = 64
+_SMALL_CODES = 16           # codes per block of the one-launch path
+_SMALL_MAX_SLABS = 128      # its blocks, all resident at once
+_RESIDENT_ROWS = 64         # rows per tile of the resident-codebook product
+_SEGMENT_ROWS = 256         # rows per block of the statistics pass, at least
+_MAX_SEGMENTS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -123,53 +127,138 @@ def stats_segments(n: int) -> Tuple[int, int]:
     return max(1, -(-n // seg)), seg
 
 
-def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
-    """-> (idx [N] int32, q [N, D], counts [K], sums [K, D]) in float32, and
-    ``sum(q * x)`` as a fifth value with ``with_qx``. Gradient-free: callers
-    detach the inputs."""
-    _check("vq_core", x, codebook)
-    if x.device.type == "cpu":
-        return vq_core_reference(x, codebook, with_qx)
-    x = x.detach().float().contiguous()
-    c = codebook.detach().float().contiguous()
-    n, d = x.shape
-    k = c.shape[0]
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    if n == 0:
-        out = (torch.empty(0, dtype=torch.int32, device=dev),
-               torch.empty(0, d, **f32), torch.zeros(k, **f32),
-               torch.zeros(k, d, **f32))
-        return (*out, torch.zeros((), **f32)) if with_qx else out
-    segs, seg_rows = stats_segments(n)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    q = torch.empty(n, d, **f32)
-    counts = torch.empty(k, **f32)
-    sums = torch.empty(k, d, **f32)
-    c2 = torch.empty(k, **f32)
-    cnt_part = torch.empty(segs, k, dtype=torch.int32, device=dev)
-    sum_part = torch.empty(segs, k, d, **f32)
-    qx_part = torch.empty(-(-n // _TILE_ROWS), **f32)
-    qx = torch.empty(1, **f32)
+def vq_core_small(n: int, k: int) -> bool:
+    """Whether ``vq_core`` takes its one-launch path for n rows and k codes:
+    n fits one row tile (the VQ-VAE step's 64 does) and the codebook's
+    slabs of 16 codes are at most 128 blocks, all resident at once."""
+    return n <= _TILE_ROWS and -(-k // _SMALL_CODES) <= _SMALL_MAX_SLABS
+
+
+def vq_core_launches(n: int, k: int) -> int:
+    """Kernel launches of one ``vq_core`` call on a card, n >= 1 rows."""
+    return 1 if vq_core_small(n, k) else 4
+
+
+@functools.lru_cache(maxsize=256)
+def vq_core_scratch(n: int, d: int, k: int) -> Tuple[int, dict]:
+    """-> (bytes, {name: (byte offset, elements)}) of the one scratch
+    buffer of ``vq_core`` at n >= 1 rows: on the one-launch path the slabs'
+    best (distance, index) per row (``part_d``, ``part_i``: 16 codes a
+    slab) and the slabs' partials of sum(q * x) (``qx_part``); otherwise
+    the code norms ``c2``, the segments' counts and sums (``cnt_part``
+    [S, K], ``sum_part`` [S, K, D]) and the partials of sum(q * x)
+    (``qx_part``, one per block of the product: at most one per 64 rows).
+    Every part starts on 256 bytes."""
+    if vq_core_small(n, k):
+        slabs = -(-k // _SMALL_CODES)
+        parts = (("part_d", slabs * n), ("part_i", slabs * n),
+                 ("qx_part", slabs))
+    else:
+        segs, _ = stats_segments(n)
+        parts = (("c2", k), ("cnt_part", segs * k),
+                 ("sum_part", segs * k * d),
+                 ("qx_part", -(-n // _RESIDENT_ROWS)))
+    layout, off = {}, 0
+    for name, count in parts:
+        layout[name] = (off, count)
+        off += -(-count * 4 // 256) * 256
+    return off, layout
+
+
+@functools.lru_cache(maxsize=None)
+def _core_fn():
+    """``vq_core_f32``, typed once per process."""
     fn = load_library("vq_assign").vq_core_f32
-    fn.argtypes = ([ctypes.c_void_p] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 14
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), c.data_ptr(), c2.data_ptr(), idx.data_ptr(),
-                 q.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-                 cnt_part.data_ptr(), sum_part.data_ptr(),
-                 qx_part.data_ptr(), qx.data_ptr(), n, d, k, segs, seg_rows,
-                 int(bool(with_qx)), stream)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _assign_fn():
+    """``vq_assign_f32``, typed once per process."""
+    fn = load_library("vq_assign").vq_assign_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_barriers = {}   # (device, stream) -> the one-launch path's grid barrier
+
+
+def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    """Two zeroed int32 for the one-launch path's grid barrier on
+    ``stream`` (arrivals, generation); the kernel leaves the arrivals at 0,
+    so they are made once."""
+    key = (dev, stream)
+    t = _barriers.get(key)
+    if t is None:
+        t = _barriers[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return t
+
+
+def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
+    """-> (idx [N] int32, q [N, D], counts [K], sums [K, D]) in float32, and
+    ``sum(q * x)`` as a fifth value with ``with_qx``. Gradient-free: callers
+    detach the inputs. On a card the outputs are views of one buffer and the
+    kernels' scratch is one more (:func:`vq_core_scratch`); at N up to 128
+    rows (and K up to 2,048) the call is one launch
+    (:func:`vq_core_small`)."""
+    _check("vq_core", x, codebook)
+    if x.device.type == "cpu":
+        return vq_core_reference(x, codebook, with_qx)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    if codebook.dtype != torch.float32 or not codebook.is_contiguous():
+        codebook = codebook.float().contiguous()
+    c = codebook
+    n, d = x.shape
+    k = c.shape[0]
+    dev = x.device
+    if n == 0:
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = (torch.empty(0, dtype=torch.int32, device=dev),
+               torch.empty(0, d, **f32), torch.zeros(k, **f32),
+               torch.zeros(k, d, **f32))
+        return (*out, torch.zeros((), **f32)) if with_qx else out
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return vq_core(x, c, with_qx)
+    # outputs: q | idx | counts | sums | qx, as float32 words; q first, so
+    # that its rows are 16-byte aligned where D is a multiple of 4
+    buf = torch.empty(n * d + n + k + k * d + 1, dtype=torch.float32,
+                      device=dev)
+    base = buf.data_ptr()
+    nbytes, layout = vq_core_scratch(n, d, k)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    sbase = scratch.data_ptr()
+    ptr = {name: sbase + off for name, (off, _) in layout.items()}
+    small = vq_core_small(n, k)
+    segs, seg_rows = (1, n) if small else stats_segments(n)
+    stream = torch.cuda.current_stream().cuda_stream
+    o_idx, o_cnt = 4 * n * d, 4 * (n + n * d)
+    o_sums, o_qx = o_cnt + 4 * k, o_cnt + 4 * (k + k * d)
+    err = _core_fn()(
+        x.data_ptr(), c.data_ptr(), base + o_idx, base, base + o_cnt,
+        base + o_sums, base + o_qx, ptr.get("part_d"), ptr.get("part_i"),
+        _barrier(dev, stream).data_ptr() if small else None,
+        ptr.get("c2"), ptr.get("cnt_part"), ptr.get("sum_part"),
+        ptr["qx_part"], n, d, k, segs, seg_rows, int(bool(with_qx)), stream)
     if err != 0:
         raise RuntimeError(f"vq_core launch failed: cudaError {err} "
                            f"(N={n}, D={d}, K={k})")
     vq_core.launches += 1
+    q = buf[:n * d].view(n, d)
+    idx = buf[n * d:n * d + n].view(torch.int32)
+    counts = buf[n * d + n:n * d + n + k]
+    sums = buf[n * d + n + k:n * d + n + k + k * d].view(k, d)
     if with_qx:
-        return idx, q, counts, sums, qx[0]
+        return idx, q, counts, sums, buf[-1]
     return idx, q, counts, sums
 
 
@@ -198,11 +287,7 @@ def vq_assign(x: torch.Tensor, codebook: torch.Tensor, **kw) -> torch.Tensor:
     if n == 0:
         return idx
     c2 = torch.empty(k, dtype=torch.float32, device=x.device)
-    fn = load_library("vq_assign").vq_assign_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _assign_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), c.data_ptr(), c2.data_ptr(), idx.data_ptr(),
@@ -362,5 +447,6 @@ __all__ = [
     "VQResult", "VQStats", "vq_core", "vq_assign", "vq_core_reference",
     "vq_assign_reference", "vq_distances", "quantize", "quantize_st",
     "quantize_ema", "ema_codebook_update", "reseed_dead_codes",
-    "perplexity_from_counts", "stats_segments",
+    "perplexity_from_counts", "stats_segments", "vq_core_small",
+    "vq_core_launches", "vq_core_scratch",
 ]

@@ -78,6 +78,51 @@ def test_border_one_hot():
     assert np.count_nonzero(out.numpy()) == np.count_nonzero(np.asarray(ref))
 
 
+# (B, H, W, C, num_directions, coarse_dilation, R): the forward kernel's
+# edges -- it walks strips of 32 columns in segments of 32 rows -- with a
+# ragged last strip and segment on each of its three paths (C = 48 compiled
+# in, another even C, an odd C), H below 2 dc + 1, W below dc, dc = 1, and
+# R = 1, 3, 6 and nd = 3 (the scalar path)
+FWD_EDGE_CASES = [
+    (1, 70, 37, 48, 4, 3, 4),
+    (1, 40, 70, 8, 4, 3, 4),
+    (2, 40, 37, 5, 4, 3, 4),
+    (1, 5, 9, 5, 4, 3, 4),
+    (2, 9, 2, 6, 4, 3, 4),
+    (1, 33, 11, 6, 4, 1, 4),
+    (1, 9, 11, 5, 4, 3, 1),
+    (1, 9, 11, 48, 4, 3, 3),
+    (1, 9, 33, 6, 3, 2, 6),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,nd,dc,r", FWD_EDGE_CASES)
+def test_bank_mix_reference_edge_shapes_match_xla(b, h, w, c, nd, dc, r):
+    rng = np.random.default_rng(60 + h + w + r)
+    x, a_w, b_w = bank_mix_inputs(rng, b, h, w, c, nd=nd, r=r)
+    ref = jsm.bank_mix_xla(jnp.asarray(x), jnp.asarray(a_w),
+                           jnp.asarray(b_w), num_directions=nd,
+                           coarse_dilation=dc)
+    out = tsm.bank_mix(t(x), t(a_w), t(b_w), num_directions=nd,
+                       coarse_dilation=dc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("c,dc,dtype,main,expect", [
+    (48, 3, torch.float32, True, 8 * 7 * 48 * 4),     # 48 = 16 mod 32 words
+    (48, 3, torch.bfloat16, True, 8 * 7 * 48 * 2),    # 24 = 8 mod 16 words
+    (48, 3, torch.float32, False, 8 * 7 * 56 * 4),    # 56 = 8 mod 16
+    (8, 3, torch.float32, True, 8 * 7 * 16 * 4),
+    (8, 3, torch.bfloat16, True, 8 * 7 * 16 * 2),
+    (5, 1, torch.float32, True, 4 * 3 * 8 * 4),      # odd C: scalar path
+    (48, 17, torch.float32, True, 36 * 35 * 48 * 4),  # the first refused dc
+])
+def test_fwd_shared_memory_of_one_column(c, dc, dtype, main, expect):
+    got = tsm.fwd_min_shared_bytes(c, dc, dtype, main_path=main)
+    assert got == expect
+    assert (got <= 232448) == (dc < 17)
+
+
 def test_bank_mix_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(4)
     x, a_w, b_w = (t(v) for v in bank_mix_inputs(rng, 1, 9, 11, 5))
@@ -259,6 +304,38 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, b, h, w,
     tol = F32 if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-6)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,nd,dc,r", FWD_EDGE_CASES)
+def test_kernel_edge_shapes_on_card(cuda_device, dtype, b, h, w, c, nd, dc,
+                                    r):
+    rng = np.random.default_rng(14)
+    x, a_w, b_w = (t(v).to(cuda_device, dtype)
+                   for v in bank_mix_inputs(rng, b, h, w, c, nd=nd, r=r))
+    kw = dict(num_directions=nd, coarse_dilation=dc)
+    before = tsm.bank_mix.launches
+    out = tsm.bank_mix(x, a_w, b_w, **kw)
+    again = tsm.bank_mix(x, a_w, b_w, **kw)
+    torch.cuda.synchronize()
+    assert tsm.bank_mix.launches == before + 2
+    assert torch.equal(out, again)          # no atomics: the same bits
+    ref = tsm.bank_mix_reference(x, a_w, b_w, **kw).float()
+    # f32: reordered f32 sums; bf16: one bf16 ulp of the largest magnitude
+    bound = 1e-5 if dtype == torch.float32 else \
+        2 ** -7 * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_does_not_fit_a_block_on_card(cuda_device):
+    x = torch.zeros(1, 4, 4, 48, device=cuda_device)
+    a_w = torch.zeros(1, 4, 4, 8, 4, device=cuda_device)
+    b_w = torch.zeros(1, 4, 4, 48, 4, device=cuda_device)
+    tsm.bank_mix(x, a_w, b_w, coarse_dilation=16)
+    with pytest.raises(RuntimeError, match="one pixel column"):
+        tsm.bank_mix(x, a_w, b_w, coarse_dilation=17)
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from forest_tpu.eval import export_codebook as jexport
 from forest_tpu_torch.data.cube import build_synthetic_cube
@@ -81,7 +82,8 @@ def test_auto_resume_continues_and_no_resume_restarts(trained_run, tmp_path):
 def test_export_codebook_and_the_jax_export_of_the_same_run(trained_run,
                                                             tmp_path):
     root, cfg, _ = trained_run
-    out = export_codebook.export(cfg["zarr"], cfg["run_dir"], write_csv=True)
+    out = export_codebook.export(cfg["zarr"], cfg["run_dir"], write_csv=True,
+                                 device="cpu")
     z = np.load(out, allow_pickle=False)
     K, T = 16, 5
     assert z["cont"].shape == (K * T, 8)
@@ -101,6 +103,37 @@ def test_export_codebook_and_the_jax_export_of_the_same_run(trained_run,
         np.testing.assert_allclose(z[k], theirs[k], rtol=1e-5, atol=1e-5)
     for k in ("cats", "code_id", "year", "usage", "years"):
         np.testing.assert_array_equal(z[k], theirs[k])
+
+
+def test_export_cli_takes_a_device_and_defaults_to_the_card(trained_run,
+                                                           tmp_path):
+    root, cfg, _ = trained_run
+    out = tmp_path / "cli_export.npz"
+    export_codebook.main(["--zarr", cfg["zarr"], "--run-dir", cfg["run_dir"],
+                          "--out", str(out), "--device", "cpu"])
+    z = np.load(out, allow_pickle=False)
+    ref = np.load(export_codebook.export(cfg["zarr"], cfg["run_dir"],
+                                         out=str(tmp_path / "ref.npz"),
+                                         device="cpu"), allow_pickle=False)
+    for k in ref.files:
+        np.testing.assert_array_equal(z[k], ref[k])
+    assert export_codebook.export.__defaults__[-1] == "cuda"
+    assert export_codebook.decode_codebook_sequences.__defaults__ == \
+        ("cuda",)
+
+
+def test_export_on_cuda_without_a_card_raises(trained_run, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the export runs there")
+    root, cfg, _ = trained_run
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_codebook.export(cfg["zarr"], cfg["run_dir"],
+                               out=str(tmp_path / "x.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_codebook.main(["--zarr", cfg["zarr"], "--run-dir",
+                              cfg["run_dir"], "--out",
+                              str(tmp_path / "y.npz")])
+    assert not (tmp_path / "x.npz").exists()
 
 
 def test_cli_main_trains_the_st_quantizer_under_max_steps(trained_run,

@@ -133,8 +133,47 @@ def test_ties_take_the_lowest_index_as_jax(mode):
 def test_stats_segments_cover_every_row():
     for n in (1, 64, 4096, 4097, 131072, 10 ** 7):
         segs, rows = tvq.stats_segments(n)
-        assert 1 <= segs <= 64 and rows % 128 == 0 and segs * rows >= n
+        assert 1 <= segs <= 128 and rows % 128 == 0 and segs * rows >= n
         assert (segs - 1) * rows < n
+
+
+# N at the edges of vq_core's one-launch path (one row tile of 128), and one
+# that crosses the statistics pass's segments of 256 rows
+EDGE_N = [1, 63, 64, 65, 127, 128, 129, 845]
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+def test_small_path_choice_and_scratch_layout(n):
+    d, k = 128, 256
+    small = tvq.vq_core_small(n, k)
+    assert small == (n <= 128)
+    assert tvq.vq_core_launches(n, k) == (1 if small else 4)
+    assert not tvq.vq_core_small(n, 2049) and tvq.vq_core_small(1, 2048)
+    nbytes, layout = tvq.vq_core_scratch(n, d, k)
+    if small:
+        slot = -(-16 * n * 4 // 256) * 256
+        assert layout == {"part_d": (0, 16 * n), "part_i": (slot, 16 * n),
+                          "qx_part": (2 * slot, 16)}
+    else:
+        segs, _ = tvq.stats_segments(n)
+        assert {name: cnt for name, (_, cnt) in layout.items()} == {
+            "c2": k, "cnt_part": segs * k, "sum_part": segs * k * d,
+            "qx_part": -(-n // 64)}
+    ends = sorted((off, off + 4 * cnt) for off, cnt in layout.values())
+    assert all(off % 256 == 0 for off, _ in ends)
+    assert all(e <= o for (_, e), (o, _) in zip(ends, ends[1:]))
+    assert ends[-1][1] <= nbytes < ends[-1][1] + 256
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+def test_vq_core_matches_jax_at_the_path_edges(n):
+    x, c = _data((n, 128, 256), seed=3)
+    ref = jvq.vq_core(jnp.asarray(x), jnp.asarray(c), with_qx=True,
+                      use_pallas=False)
+    got = tvq.vq_core(t(x), t(c), with_qx=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    for g, r in zip(got[1:], ref[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
 
 
 # ----------------------------------------------------- quantiser variants
@@ -359,6 +398,60 @@ def test_vq_core_kernel_matches_plain_version_on_card(cuda_device, shape):
     assert abs(qx.double() - exp_qx) <= 1e-5 * abs(exp_qx)
     if shape[0] <= 333:
         assert torch.equal(idx, tvq.vq_core_reference(x, c)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_N)
+def test_vq_core_kernel_at_the_path_edges_on_card(cuda_device, n):
+    x, c = (t(a).to(cuda_device) for a in _data((n, 128, 256), seed=24))
+    before = tvq.vq_core.launches
+    got = tvq.vq_core(x, c, with_qx=True)
+    again = tvq.vq_core(x, c, with_qx=True)
+    torch.cuda.synchronize()
+    assert tvq.vq_core.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    idx, q, counts, sums, qx = got
+    assert torch.equal(idx, tvq.vq_assign(x, c))
+    assert torch.equal(idx, tvq.vq_core_reference(x, c)[0])
+    il = idx.long()
+    assert torch.equal(q, c[il])
+    assert torch.equal(counts, torch.bincount(il, minlength=256).float())
+    exp = torch.zeros_like(c).index_add_(0, il, x)
+    assert (sums - exp).abs().max() <= 1e-5 * exp.abs().max()
+    exp_qx = (q.double() * x.double()).sum()
+    assert abs(qx.double() - exp_qx) <= 1e-5 * abs(exp_qx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 8, 2048), (64, 8, 2049),
+                                   (100, 130, 40), (300, 6, 3000)], ids=str)
+def test_vq_core_kernel_around_the_one_launch_limits_on_card(cuda_device,
+                                                             shape):
+    x, c = (t(a).to(cuda_device) for a in _data(shape, seed=26))
+    got = tvq.vq_core(x, c, with_qx=True)
+    again = tvq.vq_core(x, c, with_qx=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    idx, q, counts, sums, qx = got
+    assert torch.equal(idx, tvq.vq_assign(x, c))
+    assert _rule_ok(x, c, idx)
+    il = idx.long()
+    assert torch.equal(q, c[il])
+    assert torch.equal(counts, torch.bincount(il, minlength=c.shape[0])
+                       .float())
+    exp = torch.zeros_like(c).index_add_(0, il, x)
+    assert (sums - exp).abs().max() <= 1e-5 * exp.abs().max()
+
+
+@pytest.mark.cuda
+def test_vq_core_indices_equal_vq_assign_at_the_bench_shape_on_card(
+        cuda_device):
+    x, c = (t(a).to(cuda_device) for a in _data((131072, 128, 256),
+                                                 seed=25))
+    idx = tvq.vq_core(x, c)[0]
+    assert torch.equal(idx, tvq.vq_assign(x, c))
+    assert torch.equal(idx.cpu(), tvq.vq_core_reference(x.cpu(),
+                                                        c.cpu())[0])
 
 
 @pytest.mark.cuda
