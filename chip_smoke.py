@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-training   # phases 1, 2 and a profile
+    python3 chip_smoke.py --profile-training-type-only  # the type losses
     python3 chip_smoke.py --profile-vqvae      # the same for the VQ-VAE step
     python3 chip_smoke.py --profile-vq-core    # K4's time split by kernel
     python3 chip_smoke.py --profile-vq-assign  # K5's and K7's, and by N
@@ -45,13 +46,22 @@ Phases, each of which passes or raises (any failure exits non-zero):
    model run with the plain version of the kernel, within the bfloat16
    bound below;
 8. train: the same v1 model (bf16 smoothing), a synthetic batch of 12
-   patches of 256 x 256 x 15 years, 300 anchors per patch, the type-pathway
-   ``process_batch`` under ``make_train_step`` on ``cuda``. First one step's
-   ``loss_total`` and ``grad_norm`` with the kernels against the same step,
-   same draws, with the kernels' plain versions swapped in. Then, with the
-   launch counts set to 0, 2 warm and 5 timed steps: every metric finite,
-   ``skipped`` 0, parameters changed, K1, K2 and K3 each launched at least
-   once per step;
+   patches of 256 x 256 x 15 years, 300 anchors per patch, the full
+   ``process_batch`` under ``make_train_step`` on ``cuda`` with
+   ``step.DEFAULT_WEIGHTS`` (configs/frl_training_v1.yaml's weights at full
+   ramp: the eight non-EVT losses on, the phase pathway included). First
+   one step's ``loss_total`` and ``grad_norm`` with the kernels against the
+   same step, same draws, with the kernels' plain versions swapped in. Then,
+   with the launch counts set to 0, 2 warm and 5 timed steps: every metric
+   and weighted loss finite, phase pairs found, ``skipped`` 0, every
+   parameter tensor of the phase pathway (and the type pathway's) changed,
+   K1, K2 and K3 each launched at least once per step; the step's time
+   (median, min, max), one step split into forward, backward and optimizer,
+   and peak memory. Then one step more with the EVT loss on (weight 0.1,
+   tables from a confusion CSV over the batch's codes 7001-7003 written into
+   a temporary directory) and ``diag=True``, against its plain-kernel twin
+   with the same bounds: ``loss_evt`` finite and non-zero, all 106
+   diagnostics finite;
 9. hold K4 ``ops.vq.vq_core`` to its plain version at the bench shape
    N 131072, D 128, K 256 with ``with_qx``, at the train step's (64, 128,
    256), at N 1, 63, 65, 127, 128, 129 and 845 (the edges of its one-launch
@@ -74,11 +84,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
     exactly; timed beside ``addmm`` + ``argmin``;
 11. hold K6 and K7 (``ops.vq_variants.make_assign`` / ``make_assign_t``) to
     their plain versions knob by knob (bfloat16 operands, bfloat16 storage,
-    ``argmin=False``, x given transposed or not); K7 at the tiles 512,
-    1024, 2048 and 4096 must give the same indices, on the resident path in
-    float32 (equal to K5's) and on the tensor cores with rounded operands;
-    then run the sweep ``vq_variants.main()`` with fewer iterations for the
-    times (K7 per tile, K6's row beside them);
+    ``argmin=False`` on each of K6's products, x given transposed or not);
+    at the tiles 512, 1024, 2048 and 4096 each must give the same indices,
+    on the resident path in float32 (equal to K5's float32 indices) and on
+    the tensor cores with rounded operands (K6's equal to K5's bfloat16
+    indices); then run the sweep ``vq_variants.main()`` with fewer
+    iterations for the times (K7 per tile, K6's row beside them) and time
+    K6's rounded variants;
 12. the legacy VQ-VAE: build a synthetic 256 x 256 cube (5 years, 8
     continuous, 2 categorical, 3 NAIP bands) in a temporary directory; one
     train step with K4 against the same step with its plain version swapped
@@ -103,12 +115,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
 shape and their times by CUDA events at three N.
 ``--profile-training`` builds the kernels and then, instead of phases 3-12,
-runs three warm training steps, two timed and two under ``torch.profiler``,
-and prints the device's busy time per step against the step's time without
-the profiler, the host synchronisations per step, the kernels that took
-most of the device's time and every kernel of this package; it prints no
-result lines. ``--profile-vqvae`` does the same for 20 VQ-VAE
-train steps, on a resident batch and with the batch's copy to the device.
+runs three warm full training steps (every loss of ``DEFAULT_WEIGHTS``),
+two timed and two under ``torch.profiler``, and prints the device's busy
+time per step against the step's time without the profiler, the host
+synchronisations per step with the operators that made them, the forward's
+device time by stage of ``process_batch``, the kernels that took most of
+the device's time and every kernel of this package; it prints no result
+lines. ``--profile-training-type-only`` profiles the same step with the
+three type losses alone (the phase weights 0, as before the phase
+curriculum starts). ``--profile-vqvae`` does the same for
+20 VQ-VAE train steps, on a resident batch and with the batch's copy to the
+device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's source, launches by main path (serving and FRL training; for the
@@ -134,6 +151,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
@@ -217,8 +235,9 @@ SCATTER_BOUND = 1e-5
 # weights and draws: the bf16 smoothing block rounds the bank's output and
 # its gradients to bf16 in both, so the two differ by one bf16 ulp at a few
 # elements in a million; over 3,600 anchors and 174,072 parameters that
-# leaves the loss and the global gradient norm apart by ~1e-7 and ~1e-6
-# relative (as measured on an H100); the bounds leave a 100-fold margin.
+# left the type-pathway step's loss and global gradient norm apart by ~1e-7
+# and ~1e-6 relative (as measured on an H100; the full step's, 4-7x larger,
+# came out equal to the last bit); the bounds leave a 100-fold margin.
 STEP_LOSS_REL_BOUND = 1e-5
 STEP_GNORM_REL_BOUND = 1e-4
 
@@ -732,16 +751,20 @@ def check_variants(generator, iters: int = 5) -> dict:
                  vv.assign_t_reference(a, b, m, t, p))
     # argmin=False writes the truncated row minimum: a float32 rounding of
     # the minimum next to a whole number may move it by one
-    got = vv.make_assign(512, False, f32, argmin=False)(x, c)
-    ref = vv.assign_reference(x, c, argmin=False)
-    diff = (got - ref).abs()
-    res = {"variant": "f32, argmin=False",
-           "max_abs_diff": int(diff.max().item()),
-           "rows_differing": int((diff != 0).sum().item())}
-    checks["vq_variant_rows"].append(res)
-    log(f"kernel check {json.dumps(dict(res, kernel='vq_variant_rows'))}")
-    if res["max_abs_diff"] > 1 or res["rows_differing"] > n // 1000:
-        raise AssertionError(f"vq_variant_rows argmin=False: {res}")
+    for name, mxu, io in (("f32", False, f32), ("bf16 operands", True, f32),
+                          ("bf16 io", True, bf16)):
+        got = vv.make_assign(512, mxu, io, argmin=False)(x, c)
+        path = vv.make_assign.last_path
+        ref = vv.assign_reference(x, c, mxu, io, argmin=False)
+        diff = (got.long() - ref.long()).abs()
+        res = {"variant": f"{name}, argmin=False", "path": path,
+               "max_abs_diff": int(diff.max().item()),
+               "rows_differing": int((diff != 0).sum().item())}
+        checks["vq_variant_rows"].append(res)
+        log(f"kernel check {json.dumps(dict(res, kernel='vq_variant_rows'))}")
+        if res["max_abs_diff"] > 1 or res["rows_differing"] > n // 1000 \
+                or path != ("mma" if mxu else "resident"):
+            raise AssertionError(f"vq_variant_rows argmin=False: {res}")
     xi, ci = integer_inputs(generator)
     if not (torch.equal(vv.make_assign(128, False)(xi, ci),
                         vv.assign_reference(xi, ci))
@@ -756,26 +779,32 @@ def check_variants(generator, iters: int = 5) -> dict:
                 raise AssertionError(f"a variant is wrong at {shape}")
 
     # the TPU's tile has no say on the card: every tile, the same indices;
-    # K7 float32 = K5 float32 on finite data
+    # K6 and K7 float32 = K5 float32 on finite data, K6 with bfloat16
+    # operands = K5 bfloat16 (the same rounding and products; with bfloat16
+    # storage ||C||^2 comes from the stored codebook, so only the rule holds)
     from forest_tpu_torch.ops import vq
-    k5 = vq.vq_assign(x, c)
-    tiles = {}
-    for name, mxu, io in (("f32", False, f32), ("bf16 operands", True, f32),
-                          ("bf16 io", True, bf16)):
-        got = [vv.make_assign_t(tile, mxu, io, True)(xt, c)
-               for tile in VQ_TILES]
-        path = vv.make_assign_t.last_path
-        same = all(torch.equal(got[0], g) for g in got[1:])
-        tiles[name] = {"path": path, "same_indices_at_every_tile": same}
-        if not same or path != ("mma" if mxu else "resident"):
-            raise AssertionError(f"vq_variant_cols {name}: {tiles[name]}")
-        if name == "f32":
-            tiles[name]["equals_vq_assign_f32"] = bool(torch.equal(got[0],
-                                                                   k5))
-            if not tiles[name]["equals_vq_assign_f32"]:
-                raise AssertionError("vq_variant_cols float32 indices "
-                                     "differ from vq_assign's")
-    log(f"kernel check {json.dumps({'kernel': 'vq_variant_cols', 'tiles': tiles})}")
+    k5 = {False: vq.vq_assign(x, c), True: vq.vq_assign(x, c, mxu_bf16=True)}
+    tiles = {"vq_variant_rows": {}, "vq_variant_cols": {}}
+    for kernel, make, xin in (("vq_variant_rows", vv.make_assign, x),
+                              ("vq_variant_cols", vv.make_assign_t, xt)):
+        for name, mxu, io in (("f32", False, f32),
+                              ("bf16 operands", True, f32),
+                              ("bf16 io", True, bf16)):
+            got = [(make(tile, mxu, io, True) if make is vv.make_assign_t
+                    else make(tile, mxu, io))(xin, c) for tile in VQ_TILES]
+            path = make.last_path
+            same = all(torch.equal(got[0], g) for g in got[1:])
+            res = {"path": path, "same_indices_at_every_tile": same}
+            if not same or path != ("mma" if mxu else "resident"):
+                raise AssertionError(f"{kernel} {name}: {res}")
+            if io == f32 and (kernel == "vq_variant_rows" or not mxu):
+                res["equals_vq_assign"] = bool(torch.equal(got[0], k5[mxu]))
+                if not res["equals_vq_assign"]:
+                    raise AssertionError(f"{kernel} {name} indices differ "
+                                         f"from vq_assign's")
+            tiles[kernel][name] = res
+        log("kernel check "
+            + json.dumps({"kernel": kernel, "tiles": tiles[kernel]}))
 
     vv.make_assign.launches = vv.make_assign_t.launches = 0
     times = vv.main(["--iters", str(iters)])           # the sweep
@@ -791,6 +820,10 @@ def check_variants(generator, iters: int = 5) -> dict:
               "library_is": "a composition: matmul, argmin",
               "sweep_us": times}
     rows = dict(common, ms=times["kernel row-major f32 tile=512 (ref)"] / 1e3,
+                bf16_mxu_ms=cuda_ms(lambda: vv.make_assign(512, True)(x, c)),
+                bf16_io_ms=cuda_ms(
+                    lambda: vv.make_assign(512, True, bf16)(x, c)),
+                tiles=tiles["vq_variant_rows"],
                 path_launches=swept["vq_variant_rows"],
                 plain_ms=cuda_ms(lambda: vv.assign_reference(x, c), runs=5),
                 max_abs_err=max(0.0, max(
@@ -804,7 +837,8 @@ def check_variants(generator, iters: int = 5) -> dict:
                 bf16_mxu_ms_by_tile={
                     tile: times[f"kernelT bf16-mxu tileT={tile} (pre-T)"]
                     / 1e3 for tile in VQ_TILES},
-                tiles=tiles, path_launches=swept["vq_variant_cols"],
+                tiles=tiles["vq_variant_cols"],
+                path_launches=swept["vq_variant_cols"],
                 plain_ms=cuda_ms(
                     lambda: vv.assign_t_reference(xt, c, pre_transposed=True),
                     runs=5),
@@ -1105,13 +1139,22 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def build_train_step(device: str = "cuda"):
+EVT_CODES = (7001, 7002, 7003)      # synthetic_frl_batch's EVT codes
+EVT_WEIGHT = 0.1
+
+
+def build_train_step(device: str = "cuda", evt_dir: Optional[Path] = None,
+                     diag: bool = False):
     """The v1 model with seeded weights, the synthetic bindings with the
     production sampling strategy (stride 16, border 16, jitter 4, 104
     weighted supplement anchors: 300 per 256 x 256 patch), the port's
-    process_batch and train_step over them, and one synthetic batch on the
-    device. -> a namespace: model, process, sampler, step_cfg, batch,
-    weights, curriculum, gen, optimizer, state, train_step."""
+    process_batch (every loss of DEFAULT_WEIGHTS, the weights of
+    configs/frl_training_v1.yaml at full ramp) and train_step over them,
+    and one synthetic batch on the device. With ``evt_dir`` the EVT loss is
+    on too (weight EVT_WEIGHT; its confusion CSV is written there), and
+    ``diag`` adds the diagnostics. -> a namespace: model, process, sampler,
+    step_cfg, batch, weights, curriculum, gen, optimizer, state,
+    train_step."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1122,14 +1165,28 @@ def build_train_step(device: str = "cuda"):
                                        synthetic_feature_stats,
                                        synthetic_frl_batch)
     from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    from forest_tpu_torch.losses.evt_soft_neighborhood import (
+        EvtDiffusionMetric, write_synthetic_confusion_csv)
     from forest_tpu_torch.models import representation as rep
     from forest_tpu_torch.training.representation import (
         config_builders as cb, step as step_mod, train_step as ts)
 
     cfg = yaml.safe_load((ROOT / "configs/frl_repr_model_v1.yaml")
                          .read_text())
-    bindings = parse_bindings(synthetic_bindings("unused.zarr",
-                                                 "unused.json"))
+    raw = synthetic_bindings("unused.zarr", "unused.json")
+    training_cfg, evt_tables = {}, None
+    weights = dict(step_mod.DEFAULT_WEIGHTS)
+    if evt_dir is not None:
+        csv_path = write_synthetic_confusion_csv(
+            evt_dir / "evt_confusion.csv", EVT_CODES, seed=SEED)
+        raw["losses"]["evt_soft_neighborhood"] = {
+            "feature": "static_categorical.evt",
+            "confusion_csv": str(csv_path)}
+        training_cfg = {"loss_weights": {"evt": EVT_WEIGHT}}
+        weights["evt"] = EVT_WEIGHT
+        evt_tables = step_mod.build_evt_tables(EvtDiffusionMetric(
+            csv_path, {c: 1000 for c in EVT_CODES}, min_count=10))
+    bindings = parse_bindings(raw)
     bindings.sampling_strategies["grid-plus-supplement"] = {
         "grid": {"stride": 16, "exclude_border": 16,
                  "jitter": {"radius": 4}},
@@ -1142,16 +1199,17 @@ def build_train_step(device: str = "cuda"):
     phase_in = len(bindings.get_feature("phase_ccdc").channels)
     model = rep.from_config(cfg, type_in, phase_in)
     rep.init_parameters(model, torch.Generator().manual_seed(SEED))
-    step_cfg = cb.build_step_config(bindings, {})
-    sampler = cb.build_sampler(bindings, {})
+    step_cfg = cb.build_step_config(bindings, training_cfg)
+    if step_cfg.evt_enabled != (evt_dir is not None):
+        raise AssertionError(f"evt_enabled {step_cfg.evt_enabled}")
+    sampler = cb.build_sampler(bindings, training_cfg)
     bsz, hw = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
-    process = step_mod.make_process_batch(model, fb, sampler, step_cfg, hw,
-                                          device=device)
+    process = step_mod.make_process_batch(
+        model, fb, sampler, step_cfg, hw, evt_tables=evt_tables, diag=diag,
+        device=device)
     batch = {k: torch.as_tensor(v).to(device) for k, v in
              synthetic_frl_batch(np.random.default_rng(SEED), bsz, hw,
                                  T_STEPS).items()}
-    weights = {k: (v if k in step_mod.PORTED_WEIGHTS else 0.0)
-               for k, v in step_mod.DEFAULT_WEIGHTS.items()}
     optimizer = ts.make_optimizer(1e-4)
     return SimpleNamespace(
         model=model, process=process, sampler=sampler, step_cfg=step_cfg,
@@ -1171,45 +1229,36 @@ def loss_and_grad_norm(model, process, batch, weights, curriculum, draws):
                                 allow_unused=True)
     gnorm = ts.global_norm([g for g in grads if g is not None])
     torch.cuda.synchronize()
-    return metrics["loss_total"].item(), gnorm.item()
+    return metrics["loss_total"].item(), gnorm.item(), metrics
 
 
-def train_and_check(device: str = "cuda") -> dict:
-    import numpy as np
-    import torch
-
+def kernel_vs_plain(t, device: str = "cuda") -> dict:
+    """One step of ``t`` (build_train_step's namespace) with the kernels and
+    the same step, same weights and draws, with their plain versions
+    swapped in: loss_total and the global gradient norm within
+    STEP_LOSS_REL_BOUND / STEP_GNORM_REL_BOUND. -> the two steps, their
+    differences and the kernels' step's metrics."""
     from forest_tpu_torch.models import spatial
     from forest_tpu_torch.ops import scatter as sc
     from forest_tpu_torch.ops import smoothing as sm
-    from forest_tpu_torch.training.representation import (
-        step as step_mod, train_step as ts)
+    from forest_tpu_torch.training.representation import step as step_mod
 
     bsz, hw = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
-    t = build_train_step(device)
-    model, process, sampler, step_cfg = (t.model, t.process, t.sampler,
-                                         t.step_cfg)
-    batch, weights, curriculum, gen = (t.batch, t.weights, t.curriculum,
-                                       t.gen)
-    optimizer, state, train_step = t.optimizer, t.state, t.train_step
-    a = sampler.n_anchors(hw, hw)
-    log(f"training: B={bsz} {hw}x{hw} T={T_STEPS}, {a} anchors per patch, "
-        f"{sum(p.numel() for p in model.parameters())} params, weights "
-        f"{ {k: v for k, v in weights.items() if v} }")
-
-    # one step, same weights and draws: kernels vs their plain versions
-    draws = step_mod.draw_step_randoms(gen, bsz, hw, sampler, step_cfg,
-                                       model, True, device)
-    k_loss, k_gnorm = loss_and_grad_norm(model, process, batch, weights,
-                                         curriculum, draws)
+    draws = step_mod.draw_step_randoms(t.gen, bsz, hw, t.sampler,
+                                       t.step_cfg, t.model, True, device)
+    args = (t.model, t.process, t.batch, t.weights, t.curriculum, draws)
+    kernels = (sm.bank_mix, sm.bank_mix_bwd, sc.scatter_add_rows)
+    before = [k.launches for k in kernels]
+    k_loss, k_gnorm, metrics = loss_and_grad_norm(*args)
+    if any(k.launches == n for k, n in zip(kernels, before)):
+        raise AssertionError("the kernel step did not launch K1, K2, K3")
     spatial.bank_mix = sm.bank_mix_reference
     kernel_scatter = sc.scatter_add_rows
     sc.scatter_add_rows = lambda dz, idx, n_rows, check_index=True: \
         sc.scatter_add_rows_reference(dz, idx, n_rows)
-    kernels = (sm.bank_mix, sm.bank_mix_bwd, kernel_scatter)
     try:
         before = [k.launches for k in kernels]
-        p_loss, p_gnorm = loss_and_grad_norm(model, process, batch, weights,
-                                             curriculum, draws)
+        p_loss, p_gnorm, _ = loss_and_grad_norm(*args)
         if [k.launches for k in kernels] != before:
             raise AssertionError("the plain step launched a kernel")
     finally:
@@ -1224,6 +1273,56 @@ def train_and_check(device: str = "cuda") -> dict:
     if not (res["loss_rel_diff"] <= STEP_LOSS_REL_BOUND
             and res["grad_norm_rel_diff"] <= STEP_GNORM_REL_BOUND):
         raise AssertionError(f"kernel step disagrees with plain step: {res}")
+    return dict(res, metrics={k: float(v) for k, v in metrics.items()})
+
+
+# the weighted losses of the step and their metric keys
+WEIGHTED_LOSSES = {
+    "spatial_infonce": "loss_spatial_infonce",
+    "spectral_infonce": "loss_spectral_infonce",
+    "vicreg_type": "loss_vicreg_type", "vicreg_phase": "loss_vicreg_phase",
+    "phase_neighborhood": "loss_phase_neighborhood",
+    "phase_spread": "loss_phase_spread",
+    "recovery_disc": "loss_recovery_disc",
+    "type_leakage": "loss_type_leakage", "evt": "loss_evt"}
+PHASE_PARAMS = ("phase_tcn.", "phase_head.", "phase_film.")
+
+
+def check_step_metrics(metrics: dict, weights: dict, label: str) -> None:
+    """Every weighted loss finite, phase pairs found, every metric finite."""
+    import numpy as np
+    on = {w: WEIGHTED_LOSSES[w] for w, v in weights.items() if v}
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or metrics["phase_pairs_valid"] <= 0 \
+            or metrics.get("skipped", 0) != 0:
+        raise AssertionError(f"{label}: non-finite {bad}, phase pairs "
+                             f"{metrics['phase_pairs_valid']}, skipped "
+                             f"{metrics.get('skipped')}")
+    missing = [k for k in on.values() if k not in metrics]
+    if missing:
+        raise AssertionError(f"{label}: no metric for {missing}")
+
+
+def train_and_check(device: str = "cuda") -> dict:
+    import torch
+
+    from forest_tpu_torch.training.representation import train_step as ts
+
+    bsz, hw = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    t = build_train_step(device)
+    model, process, sampler = t.model, t.process, t.sampler
+    batch, weights, curriculum, gen = (t.batch, t.weights, t.curriculum,
+                                       t.gen)
+    optimizer, state, train_step = t.optimizer, t.state, t.train_step
+    a = sampler.n_anchors(hw, hw)
+    on = [k for k, v in weights.items() if v]
+    log(f"training: B={bsz} {hw}x{hw} T={T_STEPS}, {a} anchors per patch, "
+        f"{sum(p.numel() for p in model.parameters())} params, weights "
+        f"{ {k: weights[k] for k in on} }")
+    if len(on) != 8:
+        raise AssertionError(f"expected the eight non-EVT losses on: {on}")
+    res = kernel_vs_plain(t, device)
+    check_step_metrics(res.pop("metrics"), weights, "kernel step")
 
     # the main path: train_step on the card
     start = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1241,13 +1340,10 @@ def train_and_check(device: str = "cuda") -> dict:
         history.append(metrics)
         log(f"train step {i}: {step_ms[-1]:.1f} ms  "
             + "  ".join(f"{k}={metrics[k]:.4g}" for k in (
-                "loss_total", "loss_spatial_infonce",
-                "loss_spectral_infonce", "loss_vicreg_type", "grad_norm",
-                "n_anchors_valid", "skipped")))
-        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
-        if bad or metrics["skipped"] != 0:
-            raise AssertionError(f"train step {i}: non-finite {bad}, "
-                                 f"skipped {metrics['skipped']}")
+                ["loss_total"] + [WEIGHTED_LOSSES[w] for w in on]
+                + ["phase_pairs_valid", "grad_norm", "n_anchors_valid",
+                   "skipped"])))
+        check_step_metrics(metrics, weights, f"train step {i}")
     launches = {k: v for k, v in read_launches().items()
                 if k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")}
     if any(n < n_steps for n in launches.values()):
@@ -1259,9 +1355,11 @@ def train_and_check(device: str = "cuda") -> dict:
                 for k, v in model.state_dict().items())
     type_params = sum(k.startswith(("encoder.", "spatial_conv."))
                       for k in start)
-    if moved < type_params:
-        raise AssertionError(f"only {moved} of {type_params} type-pathway "
-                             f"parameter tensors changed")
+    still = [k for k, v in model.state_dict().items()
+             if k.startswith(PHASE_PARAMS) and torch.equal(v, start[k])]
+    if moved < type_params or still:
+        raise AssertionError(f"only {moved} parameter tensors changed; "
+                             f"phase tensors unchanged: {still}")
 
     # where one step's time goes: forward, backward, optimizer
     names, params = zip(*model.named_parameters())
@@ -1290,7 +1388,45 @@ def train_and_check(device: str = "cuda") -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss_total_first": history[0]["loss_total"],
         "loss_total_last": history[-1]["loss_total"],
-        "tensors_changed": moved})
+        "losses_last": {w: history[-1][WEIGHTED_LOSSES[w]] for w in on},
+        "tensors_changed": moved,
+        "phase_tensors": sum(k.startswith(PHASE_PARAMS) for k in start)})
+    log(f"full FRL train step: {res['step_ms_median']:.2f} ms median "
+        f"(min {res['step_ms_min']:.2f}, max {res['step_ms_max']:.2f}) of "
+        f"{TRAIN_STEPS_TIMED}; one step forward "
+        f"{stages['forward_ms']:.2f} / backward {stages['backward_ms']:.2f} "
+        f"/ optimizer {stages['optimizer_ms']:.2f} ms; peak "
+        f"{res['peak_memory_gb']:.2f} GB; {moved} tensors moved")
+    return res
+
+
+def evt_diag_step_check(device: str = "cuda") -> dict:
+    """Phase 8b: one step with EVT on (weight EVT_WEIGHT, tables from a
+    confusion CSV over the batch's codes) and the diagnostics, against the
+    same step with the plain kernels; loss_evt finite and non-zero, every
+    diagnostic finite."""
+    import numpy as np
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        t = build_train_step(device, evt_dir=Path(d), diag=True)
+        res = kernel_vs_plain(t, device)
+    metrics = res.pop("metrics")
+    check_step_metrics(metrics, t.weights, "EVT + diag step")
+    diag = {k: v for k, v in metrics.items()
+            if k.startswith(("diag_", "leak_"))}
+    bad = [k for k, v in diag.items() if not np.isfinite(v)]
+    if not (np.isfinite(metrics["loss_evt"]) and metrics["loss_evt"] > 0) \
+            or bad or len(diag) != 106:
+        raise AssertionError(f"EVT + diag step: loss_evt "
+                             f"{metrics['loss_evt']}, {len(diag)} "
+                             f"diagnostics, non-finite {bad}")
+    res.update(loss_evt=metrics["loss_evt"],
+               evt_anchors_valid=metrics["evt_anchors_valid"],
+               diagnostics=len(diag),
+               leak_r2_mean=metrics["leak_r2_mean"])
+    log(f"EVT + diag step: {json.dumps(res)}")
+    del t
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1494,10 +1630,16 @@ def vqvae_train_and_check(device: str = "cuda") -> dict:
     return res
 
 
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
 def profile_steps(label: str, run_step, warm: int, steps: int,
                   top: int = 25) -> None:
     """Profile ``steps`` calls of ``run_step``: device busy share of the
-    window and the device kernels by total time (kernel-level rows only)."""
+    window, the host synchronisations by the operator that made them, the
+    device kernels by total time (kernel-level rows only) and the device
+    time of every ``record_function`` range named "stage:..."."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1514,16 +1656,26 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
-    kernels, syncs = {}, {}
+    kernels, syncs, sync_ops, stages = {}, {}, {}, {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.name.startswith("stage:"):    # a range, not a kernel
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                n, total = stages.get(ev.name, (0, 0.0))
+                stages[ev.name] = (n + 1,
+                                   total + ev.device_time_total / 1e3)
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
             n, total = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, total + ev.device_time / 1e3)
-        elif ev.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                         "cudaEventSynchronize"):
+        elif ev.name in SYNC_CALLS:
             syncs[ev.name] = syncs.get(ev.name, 0) + 1
+            op = ev.cpu_parent
+            while op is not None and op.name in SYNC_CALLS:
+                op = op.cpu_parent
+            name = op.name if op is not None else "(no operator)"
+            sync_ops[name] = sync_ops.get(name, 0) + 1
     # the synchronise that ends the profiled window is not the step's
     syncs["cudaDeviceSynchronize"] = syncs.get("cudaDeviceSynchronize", 0) - 1
+    sync_ops["(no operator)"] = sync_ops.get("(no operator)", 0) - 1
     busy_ms = sum(t for _, t in kernels.values())
     n_launch = sum(n for n, _ in kernels.values())
     log(f"profile of {steps} {label} steps: device busy "
@@ -1532,7 +1684,13 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         f"take {wall_ms / steps:.3f} ms each, so the device is busy "
         f"{100 * busy_ms / wall_ms:.1f} % of a step")
     log("host synchronisations per step: "
-        + ", ".join(f"{name} {n / steps:.1f}" for name, n in syncs.items()))
+        + ", ".join(f"{name} {n / steps:.1f}" for name, n in syncs.items())
+        + "; by operator: " + ", ".join(
+            f"{name} {n / steps:.1f}" for name, n in
+            sorted(sync_ops.items(), key=lambda kv: -kv[1])))
+    for name, (n, t) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        log(f"  {t / steps:8.4f} ms/step of device time launched in "
+            f"{name[6:]} ({n / steps:.0f} x)")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     ours = [kv for kv in ranked[top:] if any(
         word in kv[0] for word in ("bank_mix", "scatter_", "vq_"))]
@@ -1637,9 +1795,44 @@ def profile_vq_assign(generator, calls: int = 10) -> dict:
     return out
 
 
-def profile_training(device: str = "cuda") -> None:
-    """Where an FRL type-pathway training step's time goes."""
+# the FRL step's stages whose device time --profile-training reports: the
+# step module's functions, by name, and the model's two forwards
+STEP_STAGES = ("extract_at_coords", "contrastive_loss_grouped",
+               "variance_covariance_loss", "build_phase_pairs",
+               "type_local_spectral_demean", "build_phase_neighborhood_batch",
+               "phase_neighborhood_loss", "compute_phase_spread_ranking",
+               "phase_recovery_discrimination_loss", "frobenius_type_leakage")
+
+
+def _staged(fn, name: str):
+    import torch
+
+    def run(*a, **k):
+        with torch.profiler.record_function("stage:" + name):
+            return fn(*a, **k)
+    return run
+
+
+TYPE_WEIGHTS = ("spatial_infonce", "spectral_infonce", "vicreg_type")
+
+
+def profile_training(device: str = "cuda", type_only: bool = False) -> None:
+    """Where an FRL training step's time goes (every loss of
+    DEFAULT_WEIGHTS, or with ``type_only`` the three type losses alone, as
+    configs/frl_training_v1.yaml trains before its phase curriculum
+    starts), with the forward's device time by stage: the backward runs on
+    autograd's threads, outside the stages."""
+    from forest_tpu_torch.training.representation import step as step_mod
+    for name in STEP_STAGES:
+        setattr(step_mod, name, _staged(getattr(step_mod, name), name))
     t = build_train_step(device)
+    if type_only:
+        t.weights = {k: (v if k in TYPE_WEIGHTS else 0.0)
+                     for k, v in t.weights.items()}
+    log(f"profiled weights: { {k: v for k, v in t.weights.items() if v} }")
+    t.model.forward = _staged(t.model.forward, "type forward")
+    t.model.forward_phase_at_locations = _staged(
+        t.model.forward_phase_at_locations, "phase forward")
     profile_steps("train", lambda: t.train_step(
         t.state, t.batch, t.gen, t.weights, t.curriculum), warm=3, steps=2)
 
@@ -1723,6 +1916,9 @@ def main() -> int:
     if sys.argv[1:] == ["--profile-training"]:
         profile_training()
         return 0
+    if sys.argv[1:] == ["--profile-training-type-only"]:
+        profile_training(type_only=True)
+        return 0
     if sys.argv[1:] == ["--profile-vqvae"]:
         profile_vqvae()
         return 0
@@ -1769,6 +1965,7 @@ def main() -> int:
     train = train_and_check()                                 # phase 8
     log(f"training: {json.dumps(train)}")
     torch.cuda.empty_cache()
+    evt_diag = evt_diag_step_check()
 
     core = check_vq_core(gen)                                 # phase 9
     assign = check_vq_assign(gen)                             # phase 10
@@ -1789,8 +1986,10 @@ def main() -> int:
         f"indices, one index_add_ {scat['library_ms']:.4f} ms; back to back "
         f"{scat['back_to_back_ms']:.4f} against "
         f"{scat['library_back_to_back_ms']:.4f} ms ({card})")
-    log(f"train step {train['step_ms_median']:.1f} ms median of "
-        f"{TRAIN_STEPS_TIMED} ({card})")
+    log(f"full FRL train step {train['step_ms_median']:.1f} ms median of "
+        f"{TRAIN_STEPS_TIMED} (min {train['step_ms_min']:.1f}, max "
+        f"{train['step_ms_max']:.1f}), peak {train['peak_memory_gb']:.2f} "
+        f"GB; EVT + diag step loss_evt {evt_diag['loss_evt']:.4g} ({card})")
     log(f"K4 vq_core at {list(VQ_SHAPE)}: {core['ms']:.4f} ms, plain "
         f"{core['plain_ms']:.4f} ms; at {list(VQ_STEP_SHAPE)} "
         f"{core['step_shape_device_ms']:.4f} ms on the device in "
@@ -1811,7 +2010,9 @@ def main() -> int:
         + ", ".join(f"{t_}: {ms:.4f}" for t_, ms in
                     variants["vq_variant_cols"]["bf16_mxu_ms_by_tile"]
                     .items())
-        + f" ms, K6 {variants['vq_variant_rows']['ms']:.4f} ms ({card})")
+        + f" ms, K6 {variants['vq_variant_rows']['ms']:.4f} ms, bf16-mxu "
+        f"{variants['vq_variant_rows']['bf16_mxu_ms']:.4f} ms, bf16-io "
+        f"{variants['vq_variant_rows']['bf16_io_ms']:.4f} ms ({card})")
     log(f"fixture: {fixture['chunks_compared']} chunks, "
         f"{fixture['native_decoded_chunks']} decoded natively, "
         f"{fixture['patches']} patches, libblosc loads: "
@@ -1872,6 +2073,9 @@ def main() -> int:
                      vq_paths(variant_sweep=variants["vq_variant_rows"][
                          "path_launches"]),
                      library_is=variants["vq_variant_rows"]["library_is"],
+                     bf16_mxu_ms=variants["vq_variant_rows"]["bf16_mxu_ms"],
+                     bf16_io_ms=variants["vq_variant_rows"]["bf16_io_ms"],
+                     tiles=variants["vq_variant_rows"]["tiles"],
                      sweep_us=variants["vq_variant_rows"]["sweep_us"]),
         kernel_entry("vq_variant_cols", variants["vq_variant_cols"],
                      vq_paths(variant_sweep=variants["vq_variant_cols"][

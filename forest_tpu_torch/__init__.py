@@ -8,8 +8,8 @@ loaders, the serving micro-batcher and HTTP front) is its own copy. Every
 Pallas TPU kernel of ``forest_tpu`` is a hand-written CUDA kernel under
 ``csrc/``, built with nvcc at first use.
 
-Ported so far: serving the frozen FRL encoder (``serving``), the
-type-pathway FRL training step (``training.representation``) and the legacy
+Ported so far: serving the frozen FRL encoder (``serving``), the FRL
+training step with every loss (``training.representation``) and the legacy
 VQ-VAE (``training.train_vqvae``, ``eval.export_codebook``).
 """
 

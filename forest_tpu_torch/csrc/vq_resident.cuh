@@ -35,6 +35,10 @@
 //
 // A code past K gets ||C||^2 = +inf on the tensor-core path and is never
 // chosen; on the FMA path the padded codes are skipped.
+//
+// MIN_ONLY (the sweep's argmin = 0, K6): the same products, but each row
+// writes its smallest distance converted to int32 by truncation toward zero
+// (static_cast, as numpy's / torch's astype(int32)) in place of its index.
 
 #pragma once
 
@@ -157,9 +161,10 @@ __device__ __forceinline__ float lane4(const float4& v, int k) {
 // 4) + lane / 8; per 4 depth entries it reads 16 float4 from shared memory
 // for 256 fmaf. Writes each row's best code to idx[row0 + r] for rows below
 // N and, where idx_s is not null, to idx_s[r] for an epilogue (with
-// NAN_RULE a row without any comparable distance takes 0). All threads call
+// NAN_RULE a row without any comparable distance takes 0; with MIN_ONLY the
+// row's smallest distance, truncated to int32, goes to idx). All threads call
 // it; it ends with a __syncthreads().
-template <bool XT, bool NAN_RULE>
+template <bool XT, bool NAN_RULE, bool MIN_ONLY = false>
 __device__ __forceinline__ void resident_tile(
     const float* cs, const float* xt, const float* __restrict__ c2,
     int32_t* __restrict__ idx, int64_t row0, int64_t N, int D, int K,
@@ -269,13 +274,14 @@ __device__ __forceinline__ void resident_tile(
       }
     if (NAN_RULE) bi = bi >= K ? 0 : bi;  // backstop, as vq_core_kernel
     if (idx_s) idx_s[tid] = bi;
-    if (row0 + tid < N) idx[row0 + tid] = bi;
+    if (row0 + tid < N)
+      idx[row0 + tid] = MIN_ONLY ? static_cast<int32_t>(bd) : bi;
   }
   __syncthreads();
 }
 
 // Index only, the FMA path: x [N, D] (or [D, N] with XT) float32 -> idx.
-template <bool XT, bool NAN_RULE>
+template <bool XT, bool NAN_RULE, bool MIN_ONLY = false>
 __global__ void __launch_bounds__(RES_THREADS, 1)
 vq_resident_assign_kernel(const float* __restrict__ x,
                           const float* __restrict__ cb,
@@ -308,7 +314,7 @@ vq_resident_assign_kernel(const float* __restrict__ x,
       else
         stage_rows(x, nb, next * RES_ROWS, N, D, LD);
     }
-    resident_tile<XT, NAN_RULE>(cs, xs + buf * tile_floats, c2, idx,
+    resident_tile<XT, NAN_RULE, MIN_ONLY>(cs, xs + buf * tile_floats, c2, idx,
                                 tile * RES_ROWS, N, D, K, Kp, LD, pd, pi,
                                 nullptr);
     buf ^= 1;
@@ -337,7 +343,7 @@ inline cudaError_t prepare_launch(int64_t bytes) {
   return cudaSuccess;
 }
 
-template <bool XT, bool NAN_RULE>
+template <bool XT, bool NAN_RULE, bool MIN_ONLY = false>
 inline cudaError_t launch_resident_assign(const float* x, const float* cb,
                                           const float* c2, int32_t* idx,
                                           int64_t N, int D, int K,
@@ -349,9 +355,10 @@ inline cudaError_t launch_resident_assign(const float* x, const float* cb,
               16 != 0)
     return cudaErrorInvalidValue;
   const cudaError_t err =
-      prepare_launch<vq_resident_assign_kernel<XT, NAN_RULE>>(bytes);
+      prepare_launch<vq_resident_assign_kernel<XT, NAN_RULE, MIN_ONLY>>(
+          bytes);
   if (err != cudaSuccess) return err;
-  vq_resident_assign_kernel<XT, NAN_RULE>
+  vq_resident_assign_kernel<XT, NAN_RULE, MIN_ONLY>
       <<<blocks, RES_THREADS, bytes, st>>>(x, cb, c2, idx, N, D, K,
                                            res_kp(K), res_ld(D));
   return cudaGetLastError();
@@ -464,7 +471,7 @@ __device__ __forceinline__ void stage_landing(const T* __restrict__ x,
 // Index only, the tensor-core path: x [N, D] (or [D, N] with XT) stored as
 // T (float or __nv_bfloat16), rounded to bfloat16 here; cb16 [K, D] the
 // codebook rounded by code_norms_round_kernel, c2 [K] float32 -> idx.
-template <typename T, bool XT, bool NAN_RULE>
+template <typename T, bool XT, bool NAN_RULE, bool MIN_ONLY = false>
 __global__ void __launch_bounds__(RES_THREADS, 1)
 vq_mma_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ cb16,
               const float* __restrict__ c2, int32_t* __restrict__ idx,
@@ -629,14 +636,14 @@ vq_mma_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ cb16,
         }
       if (NAN_RULE) bi = bi >= K ? 0 : bi;
       const int64_t row = tile * RES_ROWS + tid;
-      if (row < N) idx[row] = bi;
+      if (row < N) idx[row] = MIN_ONLY ? static_cast<int32_t>(bd) : bi;
     }
     stage = (stage + 1) % MMA_STAGES;
   }
 }
 
 // c2 [K] float32 and cb16 [K * D] bfloat16 are the caller's scratch
-template <typename T, bool XT, bool NAN_RULE>
+template <typename T, bool XT, bool NAN_RULE, bool MIN_ONLY = false>
 inline cudaError_t launch_mma_assign(const T* x, const T* cb, float* c2,
                                      __nv_bfloat16* cb16, int32_t* idx,
                                      int64_t N, int D, int K, unsigned blocks,
@@ -647,15 +654,17 @@ inline cudaError_t launch_mma_assign(const T* x, const T* cb, float* c2,
       blocks < 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(cb16) % 8 != 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch<vq_mma_kernel<T, XT, NAN_RULE>>(bytes);
+  cudaError_t err =
+      prepare_launch<vq_mma_kernel<T, XT, NAN_RULE, MIN_ONLY>>(bytes);
   if (err != cudaSuccess) return err;
   const int warps_per_block = 8;
   code_norms_round_kernel<T>
       <<<(K + warps_per_block - 1) / warps_per_block, warps_per_block * 32, 0,
          st>>>(cb, c2, cb16, K, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  vq_mma_kernel<T, XT, NAN_RULE><<<blocks, RES_THREADS, bytes, st>>>(
-      x, cb16, c2, idx, N, D, K, res_kp(K), mma_dp(D));
+  vq_mma_kernel<T, XT, NAN_RULE, MIN_ONLY>
+      <<<blocks, RES_THREADS, bytes, st>>>(x, cb16, c2, idx, N, D, K,
+                                           res_kp(K), mma_dp(D));
   return cudaGetLastError();
 }
 

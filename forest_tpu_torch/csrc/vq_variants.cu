@@ -17,10 +17,25 @@
 // TFLOP/s), which leaves the bytes: x read and idx written once, 0.020 ms
 // from float32 x, 0.010 ms from bfloat16 x.
 //
-// K6 (vq_variant_rows) keeps the float32 fmaf tile of vq_tile.cuh for every
-// variant (rounded operands give exact products there): a block takes
-// `tile` rows, 128 at a time, staging x in 64-byte pieces of 128 rows. It is
-// the sweep's control and stays as it is.
+// K6 (vq_variant_rows) is K7's row-major twin, with x in K5's layout: the
+// same two products of vq_resident.cuh over tiles of 64 rows of [N, D], each
+// row landing by 16-byte cp.async (512 bytes in float32, 256 in bfloat16 at
+// D 128), in min(tiles, SMs) persistent blocks (the count the caller
+// passes, ops.vq_variants.launch_grid). Float32 operands take K5's float32
+// path (vq_assign_f32's resident fmaf chains, the same order), so on finite
+// data K6's indices equal K5's bit for bit; rounded operands (mxu_bf16) take
+// K5's tensor-core product, ldmatrix fragments from the row-major tile, and
+// give K5 bf16's indices; bfloat16 storage lands x as stored and skips the
+// rounding (||C_k||^2 then comes from the stored bfloat16 codebook).
+// argmin = 0 runs the products' MIN_ONLY epilogue. As for K7, the TPU's
+// `tile` is checked and has no say in the launch; shapes the persistent
+// products do not take (D not a multiple of 16 bytes' worth of elements, a
+// row not on 16 bytes, a codebook past shared memory) run the slab tile of
+// vq_tile.cuh, one block per 128 rows. On the device (NVIDIA H100 80GB
+// HBM3, 700.00 W, N 131072, D 128, K 256, ops/vq_timing.py single calls)
+// f32 0.290-0.298 ms and bf16 operands 0.119 ms, where the slab tile took
+// 0.417-0.449 and 0.417-0.468 in the same runs: what holds K6 back is
+// what holds K5 back.
 //
 // K7 (vq_variant_cols) runs the products of vq_resident.cuh, which K5 runs
 // too: the whole codebook resident in shared memory, min(tiles of 64
@@ -54,6 +69,8 @@ using namespace vq;
 
 namespace {
 
+using B16 = __nv_bfloat16;
+
 template <typename T, bool TRANSPOSED, bool ROUND>
 __global__ void __launch_bounds__(THREADS)
 assign_variant_kernel(const T* __restrict__ x, const T* __restrict__ cb,
@@ -80,32 +97,64 @@ assign_variant_kernel(const T* __restrict__ x, const T* __restrict__ cb,
   }
 }
 
-// K6: a block takes `tile` rows, 128 at a time
-int launch_rows(const void* x, const void* cb, void* c2, void* out,
-                long long N, int D, int K, int tile, int is_bf16,
-                int mxu_bf16, int argmin, void* stream) {
-  if (bad_shape(N, D, K) || tile < BM || tile % BM != 0)
+// K6's persistent products, index (MIN_ONLY false) or row minimum (true)
+template <bool MIN_ONLY>
+cudaError_t launch_rows_persistent(const void* x, const void* cb, float* c2,
+                                   __nv_bfloat16* cb16, int32_t* out,
+                                   int64_t N, int D, int K, int is_bf16,
+                                   int path, unsigned blocks,
+                                   cudaStream_t st) {
+  using B = __nv_bfloat16;
+  if (path == 2)
+    return is_bf16 ? launch_mma_assign<B, false, false, MIN_ONLY>(
+                         static_cast<const B*>(x), static_cast<const B*>(cb),
+                         c2, cb16, out, N, D, K, blocks, st)
+                   : launch_mma_assign<float, false, false, MIN_ONLY>(
+                         static_cast<const float*>(x),
+                         static_cast<const float*>(cb), c2, cb16, out, N, D,
+                         K, blocks, st);
+  launch_code_norms<float>(cb, c2, K, D, st);
+  return launch_resident_assign<false, false, MIN_ONLY>(
+      static_cast<const float*>(x), static_cast<const float*>(cb), c2, out, N,
+      D, K, blocks, st);
+}
+
+int launch_rows(const void* x, const void* cb, void* c2, void* cb16,
+                void* out, long long N, int D, int K, int tile, int is_bf16,
+                int mxu_bf16, int argmin, int path, int blocks,
+                void* stream) {
+  const bool rounded = is_bf16 || mxu_bf16;
+  if (bad_shape(N, D, K) || tile < BM || tile % BM != 0 || path < 0 ||
+      path > 2 || (path == 1 && rounded) || (path == 2 && !rounded) ||
+      (path != 0 && blocks < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((N + tile - 1) / tile);
-  const float* c2p = static_cast<const float*>(c2);
+  float* c2p = static_cast<float*>(c2);
   int32_t* op = static_cast<int32_t*>(out);
+  B16* cbr = static_cast<B16*>(cb16);
+  if (path != 0)
+    return static_cast<int>(
+        argmin ? launch_rows_persistent<false>(x, cb, c2p, cbr, op, N, D, K,
+                                               is_bf16, path, blocks, st)
+               : launch_rows_persistent<true>(x, cb, c2p, cbr, op, N, D, K,
+                                              is_bf16, path, blocks, st));
+  // the slab tile: one block per 128 rows
+  const unsigned tiles = static_cast<unsigned>((N + BM - 1) / BM);
   if (is_bf16) {
-    using B = __nv_bfloat16;
-    launch_code_norms<B>(cb, c2, K, D, st);
-    assign_variant_kernel<B, false, false><<<blocks, THREADS, 0, st>>>(
-        static_cast<const B*>(x), static_cast<const B*>(cb), c2p, op, N, D, K,
-        tile, argmin);
+    launch_code_norms<B16>(cb, c2, K, D, st);
+    assign_variant_kernel<B16, false, false><<<tiles, THREADS, 0, st>>>(
+        static_cast<const B16*>(x), static_cast<const B16*>(cb), c2p, op, N,
+        D, K, BM, argmin);
   } else {
     launch_code_norms<float>(cb, c2, K, D, st);
     const float* xp = static_cast<const float*>(x);
     const float* cp = static_cast<const float*>(cb);
     if (mxu_bf16)
       assign_variant_kernel<float, false, true>
-          <<<blocks, THREADS, 0, st>>>(xp, cp, c2p, op, N, D, K, tile, argmin);
+          <<<tiles, THREADS, 0, st>>>(xp, cp, c2p, op, N, D, K, BM, argmin);
     else
       assign_variant_kernel<float, false, false>
-          <<<blocks, THREADS, 0, st>>>(xp, cp, c2p, op, N, D, K, tile, argmin);
+          <<<tiles, THREADS, 0, st>>>(xp, cp, c2p, op, N, D, K, BM, argmin);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -113,13 +162,19 @@ int launch_rows(const void* x, const void* cb, void* c2, void* out,
 }  // namespace
 
 // x [N, D], cb [K, D], both float32 or both bfloat16 (is_bf16) -> out [N]
-// int32; scratch c2 [K] float32.
+// int32 (the index, or with argmin = 0 the row minimum truncated); scratch
+// c2 [K] float32 and, on path 2, cb16 [K, D] bfloat16. `tile` is checked (a
+// positive multiple of 128) and has no say in the launch. `path` as for
+// vq_variant_cols (ops.vq_variants.rows_path): 0 the slab tile, one block
+// per 128 rows; 1 the resident float32 product; 2 the tensor cores. Paths 1
+// and 2 run `blocks` persistent blocks.
 extern "C" int vq_variant_rows(const void* x, const void* cb, void* c2,
-                               void* out, long long N, int D, int K, int tile,
-                               int is_bf16, int mxu_bf16, int argmin,
+                               void* cb16, void* out, long long N, int D,
+                               int K, int tile, int is_bf16, int mxu_bf16,
+                               int argmin, int path, int blocks,
                                void* stream) {
-  return launch_rows(x, cb, c2, out, N, D, K, tile, is_bf16, mxu_bf16, argmin,
-                     stream);
+  return launch_rows(x, cb, c2, cb16, out, N, D, K, tile, is_bf16, mxu_bf16,
+                     argmin, path, blocks, stream);
 }
 
 // xt [D, N], cb [K, D] -> idx [N] int32; scratch c2 [K] float32 and, on

@@ -2,8 +2,8 @@
 
 Port of the part of ``forest_tpu/losses/pairs.py`` that the cross-batch
 spectral loss needs: ``_chunked_knn_idx`` and ``mutual_knn_grouped``. The
-other builders of that file (kNN / quantile / radius pair lists) belong to
-the phase pathway and are not ported yet.
+other builders of that file (kNN / quantile / radius pair lists) have no
+caller in the FRL step and are not ported.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """RepresentationModel: the dual-pathway FRL encoder (z_type / z_phase).
 
 Port of ``forest_tpu/models/representation.py`` (checkpoint schema VERSION
-"4"), for inference and for the type pathway in training:
+"4"), for inference and training:
 
 - type pathway: Conv2DEncoder (1x1 convs) -> EdgeAwareSmoothingConv2D,
   [B, H, W, C_type] -> z_type [B, H, W, z_type_dim];
@@ -17,7 +17,7 @@ parameters over one to one.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,7 +47,8 @@ class RepresentationModel(nn.Module):
                  phase_tcn_channels: Sequence[int] = (64, 64, 64),
                  phase_tcn_kernel_size: int = 3,
                  phase_tcn_dilations: Sequence[int] = (1, 2, 4),
-                 phase_tcn_num_groups: int = 8):
+                 phase_tcn_num_groups: int = 8,
+                 phase_tcn_dropout: float = 0.0):
         super().__init__()
         # constructor arguments, read back by model_config_dict
         self.hparams = {k: v for k, v in locals().items()
@@ -75,7 +76,8 @@ class RepresentationModel(nn.Module):
             phase_in_channels, tuple(phase_tcn_channels),
             kernel_size=phase_tcn_kernel_size,
             dilations=tuple(phase_tcn_dilations),
-            num_groups=phase_tcn_num_groups, pooling="none")
+            num_groups=phase_tcn_num_groups, pooling="none",
+            dropout_rate=phase_tcn_dropout)
         self.phase_head = nn.Linear(phase_tcn_channels[-1], z_phase_dim)
         self.phase_film = FiLMLayer(z_type_dim, z_phase_dim)
 
@@ -99,12 +101,29 @@ class RepresentationModel(nn.Module):
     # --- phase pathway -----------------------------------------------------
 
     def forward_phase_at_locations(self, x_phase_pixels: torch.Tensor,
-                                   z_type_pixels: torch.Tensor
-                                   ) -> torch.Tensor:
-        """[N, T, C_phase] + [N, z_type_dim] -> z_phase [N, T, z_phase_dim]."""
-        h = self.phase_head(self.phase_tcn(x_phase_pixels))  # [N, T, zp]
+                                   z_type_pixels: torch.Tensor, *,
+                                   return_film: bool = False,
+                                   return_pre_film: bool = False,
+                                   deterministic: bool = True,
+                                   draws: Optional[Tuple[torch.Tensor,
+                                                         ...]] = None):
+        """[N, T, C_phase] + [N, z_type_dim] -> z_phase [N, T, z_phase_dim],
+        followed by (gamma, beta) [N, zp] with ``return_film`` and the
+        pre-FiLM bottleneck h [N, T, zp] with ``return_pre_film``. The
+        caller stops the gradient of ``z_type_pixels``. ``deterministic=
+        False`` turns the TCN's dropout on, with ``draws`` from
+        ``phase_tcn.draw`` (required then)."""
+        h = self.phase_head(self.phase_tcn(
+            x_phase_pixels, deterministic=deterministic,
+            draws=draws))                                     # [N, T, zp]
         gamma, beta = self.phase_film(z_type_pixels)          # [N, zp]
-        return FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
+        z = FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
+        out = (z,)
+        if return_film:
+            out = out + (gamma, beta)
+        if return_pre_film:
+            out = out + (h,)
+        return out if len(out) > 1 else z
 
     def forward_phase(self, x_phase: torch.Tensor,
                       z_type: torch.Tensor) -> torch.Tensor:
@@ -175,6 +194,7 @@ def from_config(cfg: Dict[str, Any], type_in_channels: int,
         phase_tcn_kernel_size=p.get("kernel_size", 3),
         phase_tcn_dilations=tuple(p.get("dilations", (1, 2, 4))),
         phase_tcn_num_groups=p.get("num_groups", 8),
+        phase_tcn_dropout=p.get("dropout_rate", 0.0),
     )
 
 
@@ -205,7 +225,7 @@ def model_config_dict(model: RepresentationModel) -> Dict[str, Any]:
                 "channels": list(hp["phase_tcn_channels"]),
                 "kernel_size": hp["phase_tcn_kernel_size"],
                 "dilations": list(hp["phase_tcn_dilations"]),
-                "dropout_rate": 0.0,
+                "dropout_rate": hp["phase_tcn_dropout"],
                 "num_groups": hp["phase_tcn_num_groups"],
             },
             "type_projection": {

@@ -1,6 +1,13 @@
-"""Gumbel-top-k weighted sampling without replacement, on exact top-k.
+"""Exact top-k in ``jax.lax.top_k``'s order, and Gumbel-top-k weighted
+sampling without replacement on it.
 
-Port of ``forest_tpu/ops/topk.py``. Adding i.i.d. Gumbel noise to the
+Port of ``forest_tpu/ops/topk.py``. :func:`top_k` returns the k largest
+entries of the last axis in descending order, the lowest index first among
+equal values: ``lax.top_k``'s order, which the JAX losses rely on wherever
+-inf or +inf fill padded slots (phase pairs, the phase neighbourhood
+builder). ``torch.topk`` does not promise that tie order, so this sorts
+with ``torch.sort(stable=True)``. :func:`topk_maybe_approx` is exact at
+every size. Adding i.i.d. Gumbel noise to the
 log-weights and taking the top k draws k indices without replacement with
 probability proportional to weight. The JAX package switches to an
 approximate TPU top-k above 4096 entries; here ``torch.topk`` is exact at
@@ -16,6 +23,24 @@ from typing import Optional, Tuple
 import torch
 
 from forest_tpu_torch.utils.draws import uniform
+
+
+def top_k(scores: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (values [..., k], indices [..., k] int64) of the k largest entries
+    of the last axis: descending, and the lowest index first among ties
+    (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def topk_maybe_approx(scores: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`top_k`, at every size. The JAX version switches to
+    ``lax.approx_max_k`` above ``exact_below`` entries; that call is exact
+    (``lax.top_k``'s indices) everywhere but on a TPU, so the TPU's
+    approximate path is the only place the two packages can differ."""
+    return top_k(scores, k)
 
 
 def gumbel_weighted_topk(weights: torch.Tensor, k: int, *,
@@ -42,4 +67,4 @@ def gumbel_weighted_topk(weights: torch.Tensor, k: int, *,
     return idx, torch.isfinite(vals)
 
 
-__all__ = ["gumbel_weighted_topk"]
+__all__ = ["top_k", "topk_maybe_approx", "gumbel_weighted_topk"]

@@ -4,9 +4,9 @@
 
 At N 131072, D 128, K 256 (seeded Gaussian x and codebook) it times K4
 ``vq_core`` (with and without sum(q * x)), K5 ``vq_assign`` (float32 and
-bfloat16 operands), K6 (the sweep's row-major float32 variant, 512 rows a
-block), K7 (x pre-transposed, float32 and bfloat16-rounded operands, at the
-TPU tiles 512, 1024, 2048 and 4096) and the PyTorch compositions
+bfloat16 operands), K6 (the sweep's row-major variant at the TPU tile 512,
+float32 and bfloat16-rounded operands), K7 (x pre-transposed, float32 and
+bfloat16-rounded operands, at the TPU tiles 512, 1024, 2048 and 4096) and the PyTorch compositions
 (``addmm`` + ``argmin``, ``matmul`` + ``argmin``): each the median of
 CUDA-event timings of single calls. Then it prints the sha256 of every
 kernel's outputs, so that two trees' results compare bit for bit. It calls
@@ -79,6 +79,7 @@ def main(argv=None) -> dict:
         "K5 f32": lambda: vq.vq_assign(x, c),
         "K5 bf16": lambda: vq.vq_assign(x, c, mxu_bf16=True),
         "K6 f32 512": lambda: vv.make_assign(512, False)(x, c),
+        "K6 bf16 512": lambda: vv.make_assign(512, True)(x, c),
     }
     for tile in TILES:
         for name, mxu in (("f32", False), ("bf16", True)):

@@ -8,11 +8,12 @@ the layout of x), and the sweep that times them.
 - :func:`make_assign` builds ``assign(x [N, D], codebook) -> idx [N]`` over
   the kernel ``vq_variant_rows`` of ``csrc/vq_variants.cu``;
 - :func:`make_assign_t` the same over ``vq_variant_cols``, which reads x as
-  [D, N] (given so with ``pre_transposed``, else transposed first). On a
-  card it runs the products of ``csrc/vq_resident.cuh`` in
-  :func:`launch_grid` persistent blocks (:func:`cols_path` says which):
-  float32 operands the resident fmaf chains of ``ops.vq.vq_assign``,
-  rounded operands its tensor-core product.
+  [D, N] (given so with ``pre_transposed``, else transposed first).
+
+On a card both run the products of ``csrc/vq_resident.cuh`` in
+:func:`launch_grid` persistent blocks (:func:`rows_path` / :func:`cols_path`
+say which): float32 operands the resident fmaf chains of
+``ops.vq.vq_assign``, rounded operands its tensor-core product.
 
 A CPU tensor goes to the plain versions :func:`assign_reference` /
 :func:`assign_t_reference`; a CUDA tensor launches the kernel or raises.
@@ -117,6 +118,35 @@ def _check(name: str, tile: int, io_dtype: torch.dtype, x: torch.Tensor,
         raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
+def _persistent_path(d: int, k: int, transposed: bool, mxu_bf16: bool,
+                     esize: int) -> str:
+    if mxu_bf16 or esize == 2:
+        ok = mma_shared_bytes(d, k, transposed, esize) <= _SHARED_BYTES
+        return "mma" if ok else "slab"
+    return "resident" if resident_shared_bytes(d, k, transposed) \
+        <= _SHARED_BYTES else "slab"
+
+
+@functools.lru_cache(maxsize=1024)
+def rows_path(n: int, d: int, k: int, mxu_bf16: bool = False,
+              io_dtype: torch.dtype = torch.float32,
+              aligned: bool = True) -> str:
+    """Which product ``make_assign``'s kernel runs on x [n, d] and k codes:
+    "resident" (float32 operands: ``ops.vq.vq_assign``'s float32 product,
+    the same fmaf chains), "mma" (operands rounded to bfloat16, by
+    ``mxu_bf16`` or by bfloat16 storage: the tensor cores), or "slab"
+    (``csrc/vq_tile.cuh``'s tile, one block per 128 rows) where d is no
+    multiple of 4 (of 8 in bfloat16: a row must be whole 16-byte pieces),
+    a pointer is not on 16 bytes (``aligned``) or the codebook does not fit
+    shared memory. Every n >= 1 takes the same path; the TPU's ``tile`` has
+    no say."""
+    del n
+    esize = 2 if io_dtype == torch.bfloat16 else 4
+    if d % 4 or d % (16 // esize) or not aligned:
+        return "slab"
+    return _persistent_path(d, k, False, mxu_bf16, esize)
+
+
 @functools.lru_cache(maxsize=1024)
 def cols_path(n: int, d: int, k: int, mxu_bf16: bool = False,
               io_dtype: torch.dtype = torch.float32,
@@ -132,59 +162,52 @@ def cols_path(n: int, d: int, k: int, mxu_bf16: bool = False,
     esize = 2 if io_dtype == torch.bfloat16 else 4
     if d % 4 or n % (16 // esize) or not aligned:
         return "slab"
-    if mxu_bf16 or esize == 2:
-        ok = mma_shared_bytes(d, k, True, esize) <= _SHARED_BYTES
-        return "mma" if ok else "slab"
-    return "resident" if resident_shared_bytes(d, k, True) <= _SHARED_BYTES \
-        else "slab"
+    return _persistent_path(d, k, True, mxu_bf16, esize)
 
 
 def launch_grid(n: int, sms: int) -> int:
-    """Blocks of one ``make_assign_t`` launch over n columns on a card of
-    ``sms`` SMs on the "resident" and "mma" paths, the count the launch
-    takes: ``min(tiles of 64 columns, sms)`` persistent blocks, never a
-    function of the TPU's ``tile``. (The "slab" path runs one block per 128
-    columns.)"""
+    """Blocks of one ``make_assign`` / ``make_assign_t`` launch over n rows
+    (columns) on a card of ``sms`` SMs on the "resident" and "mma" paths,
+    the count the launch takes: ``min(tiles of 64, sms)`` persistent blocks,
+    never a function of the TPU's ``tile``. (The "slab" path runs one block
+    per 128.)"""
     return persistent_blocks(n, sms)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     """``vq_variant_rows`` / ``vq_variant_cols``, typed once per process:
-    pointers (x, codebook, scratch, [rounded codebook,] out), N, D, K,
-    tile, is_bf16, mxu_bf16 and the last knob (``argmin`` / ``path``,
-    ``blocks``), the stream."""
+    pointers (x, codebook, scratch, rounded codebook, out), N, D, K, tile,
+    is_bf16, mxu_bf16, [``argmin``,] path, blocks, the stream."""
     fn = getattr(load_library("vq_variants"), name)
-    cols = name == "vq_variant_cols"
-    fn.argtypes = ([ctypes.c_void_p] * (5 if cols else 4)
-                   + [ctypes.c_longlong] + [ctypes.c_int] * (7 if cols else 6)
-                   + [ctypes.c_void_p])
+    rows = name == "vq_variant_rows"
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * (8 if rows else 7) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(entry: str, counter: Callable, xf: torch.Tensor,
-            cf: torch.Tensor, n: int, tile: int, mxu_bf16: bool,
-            last: int, path: str = "slab") -> torch.Tensor:
+            cf: torch.Tensor, n: int, tile: int, mxu_bf16: bool, path: str,
+            argmin: bool = True) -> torch.Tensor:
     """One launch of ``entry`` on xf ([N, D] or [D, N]) and cf [K, D], both
-    contiguous and of one storage type; ``last`` is the entry's last knob
-    (``argmin`` for the rows, ``path``'s number for the columns, which also
-    take :func:`launch_grid`'s block count)."""
+    contiguous and of one storage type, on ``path`` with
+    :func:`launch_grid`'s block count; ``argmin`` only for the rows."""
     k, d = cf.shape
     out = torch.empty(n, dtype=torch.int32, device=xf.device)
     if n == 0:
         return out
     if xf.device.index != torch.cuda.current_device():
         with torch.cuda.device(xf.device):
-            return _launch(entry, counter, xf, cf, n, tile, mxu_bf16, last,
-                           path)
-    cols = entry == "vq_variant_cols"
+            return _launch(entry, counter, xf, cf, n, tile, mxu_bf16, path,
+                           argmin)
+    rows = entry == "vq_variant_rows"
     scratch, c2, cb16 = assign_scratch(xf.device, k, d, path)
     err = _entry(entry)(
-        xf.data_ptr(), cf.data_ptr(), c2, *((cb16,) if cols else ()),
-        out.data_ptr(), n, d, k, tile, int(xf.dtype == torch.bfloat16),
-        int(mxu_bf16), int(last),
-        *((launch_grid(n, sm_count(xf.device.index)),) if cols else ()),
+        xf.data_ptr(), cf.data_ptr(), c2, cb16, out.data_ptr(), n, d, k,
+        tile, int(xf.dtype == torch.bfloat16), int(mxu_bf16),
+        *((int(argmin),) if rows else ()), ASSIGN_PATHS.index(path),
+        launch_grid(n, sm_count(xf.device.index)),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err} "
@@ -198,20 +221,30 @@ def make_assign(tile_n: int, mxu_bf16: bool,
                 argmin: bool = True) -> Callable:
     """-> assign(x [N, D], cb [K, D]) -> [N] int32: the index of the nearest
     code (lowest on ties) or, with ``argmin=False``, the smallest distance
-    ``||c||^2 - 2 x.c`` converted to int32. x and cb are cast to
-    ``io_dtype`` before the kernel; a block takes ``tile_n`` rows."""
+    ``||c||^2 - 2 x.c`` converted to int32 by truncation. x and cb are cast
+    to ``io_dtype`` before the kernel. ``tile_n`` is the TPU kernel's rows
+    per grid step: checked (a positive multiple of 128) and named in the
+    sweep, but the card's launch does not follow it: :func:`launch_grid`
+    persistent blocks walk tiles of 64 rows on the product :func:`rows_path`
+    picks. ``make_assign.last_path`` is the path of the last launch."""
     def assign(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
         _check("make_assign", tile_n, io_dtype, x, cb, 1)
         if x.device.type == "cpu":
             return assign_reference(x, cb, mxu_bf16, io_dtype, argmin)
         xf = x.detach().to(io_dtype).contiguous()
         cf = cb.detach().to(io_dtype).contiguous()
-        return _launch("vq_variant_rows", make_assign, xf, cf, x.shape[0],
-                       tile_n, mxu_bf16, int(argmin))
+        path = rows_path(xf.shape[0], xf.shape[1], cf.shape[0], mxu_bf16,
+                         io_dtype, aligned=(xf.data_ptr() % 16 == 0
+                                            and cf.data_ptr() % 16 == 0))
+        out = _launch("vq_variant_rows", make_assign, xf, cf, x.shape[0],
+                      tile_n, mxu_bf16, path, argmin)
+        make_assign.last_path = path
+        return out
     return assign
 
 
 make_assign.launches = 0
+make_assign.last_path = None
 
 
 def make_assign_t(tile_t: int, mxu_bf16: bool,
@@ -238,7 +271,7 @@ def make_assign_t(tile_t: int, mxu_bf16: bool,
                          io_dtype, aligned=(xt.data_ptr() % 16 == 0
                                             and cf.data_ptr() % 16 == 0))
         out = _launch("vq_variant_cols", make_assign_t, xt, cf, xt.shape[1],
-                      tile_t, mxu_bf16, ASSIGN_PATHS.index(path), path)
+                      tile_t, mxu_bf16, path)
         make_assign_t.last_path = path
         return out
     return assign
@@ -322,7 +355,8 @@ def main(argv=None, device: str = "cuda") -> Dict[str, float]:
     return times
 
 
-__all__ = ["make_assign", "make_assign_t", "cols_path", "launch_grid",
+__all__ = ["make_assign", "make_assign_t", "rows_path", "cols_path",
+           "launch_grid",
            "assign_reference",
            "assign_t_reference", "matmul_assign", "timeit", "variants", "main",
            "N", "D", "K"]

@@ -223,6 +223,34 @@ def test_tcn_encoder(pooling, masked):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
 
 
+def test_tcn_encoder_training_dropout():
+    """Channel dropout at every block's input with flax's own draws (the
+    uniform behind each ``jax.random.bernoulli``, [N, 1, C_in])."""
+    x = rand(30, 6, 15, 3)
+    jm = jtcn.TCNEncoder(channels=(8, 8), dilations=(1, 2), num_groups=4,
+                         dropout_rate=0.3)
+    p = flax_params(jm.init, 31, jnp.asarray(x))
+    with record_bernoulli() as rec:
+        ref = jm.apply({"params": p}, jnp.asarray(x), deterministic=False,
+                       rngs={"dropout": jax.random.key(3)})
+    assert [tuple(d.shape) for d in rec.draws] == [(6, 1, 3), (6, 1, 8)]
+    assert any((d >= 0.7).any() for d in rec.draws)
+    tm = bridge(p, ttcn.TCNEncoder(3, (8, 8), dilations=(1, 2),
+                                   num_groups=4, dropout_rate=0.3))
+    assert [tuple(d.shape) for d in tm.draw(6, None, "cpu")] == [
+        (6, 1, 3), (6, 1, 8)]
+    with torch.no_grad():
+        out = tm(t(x), deterministic=False, draws=tuple(rec.draws))
+        same = tm(t(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+    np.testing.assert_allclose(
+        same.numpy(), np.asarray(jm.apply({"params": p}, jnp.asarray(x))),
+        **F32)
+    assert not np.allclose(out.numpy(), same.numpy())
+    with pytest.raises(ValueError, match="draws"):
+        tm(t(x), deterministic=False)
+
+
 def test_film_layer():
     z = rand(9, 7, 6)
     jm = jcond.FiLMLayer(target_dim=3)
@@ -297,6 +325,42 @@ def test_config_round_trip_matches_jax():
     assert trep.model_config_dict(tm) == jrep.model_config_dict(jm)
     again = trep.from_config(trep.model_config_dict(tm), 4, 3)
     assert again.hparams == tm.hparams
+
+
+def test_phase_forward_training_with_tcn_dropout():
+    """``forward_phase_at_locations`` in training mode as the train step
+    calls it (z, gamma, beta and the pre-FiLM h) with a phase dropout of
+    0.3 and flax's draws."""
+    cfg = {**TINY_CFG, "model": {**TINY_CFG["model"], "phase_tcn": {
+        **TINY_CFG["model"]["phase_tcn"], "dropout_rate": 0.3}}}
+    jm, p, tm = _pair(cfg, seed=32)
+    assert tm.phase_tcn.dropout_rate == 0.3
+    px, zpx = rand(33, 9, 5, 3), rand(34, 9, 6)
+    with record_bernoulli() as rec:
+        ref = jm.apply({"params": p}, jnp.asarray(px), jnp.asarray(zpx),
+                       return_film=True, return_pre_film=True,
+                       deterministic=False,
+                       method=jm.forward_phase_at_locations,
+                       rngs={"dropout": jax.random.key(4)})
+    with torch.no_grad():
+        got = tm.forward_phase_at_locations(
+            t(px), t(zpx), return_film=True, return_pre_film=True,
+            deterministic=False, draws=tuple(rec.draws))
+    assert len(got) == 4
+    for name, a, b in zip(("z", "gamma", "beta", "h_pre"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **F32)
+
+
+def test_phase_dropout_config_round_trips():
+    cfg = {**TINY_CFG, "model": {**TINY_CFG["model"], "phase_tcn": {
+        **TINY_CFG["model"]["phase_tcn"], "dropout_rate": 0.2}}}
+    tm = trep.from_config(cfg, 4, 3)
+    assert tm.phase_tcn.dropout_rate == 0.2
+    out = trep.model_config_dict(tm)
+    assert out["model"]["phase_tcn"]["dropout_rate"] == 0.2
+    assert out == jrep.model_config_dict(jrep.from_config(cfg, 4, 3))
+    assert trep.from_config(out, 4, 3).hparams == tm.hparams
 
 
 def test_projection_head_is_refused():

@@ -55,6 +55,12 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/vqvae_dataset.py",
                  "forest_tpu_torch/data/loader.py",
                  "forest_tpu_torch/eval/export_codebook.py",
+                 "forest_tpu_torch/losses/phase_pairs.py",
+                 "forest_tpu_torch/losses/soft_neighborhood.py",
+                 "forest_tpu_torch/losses/phase_neighborhood.py",
+                 "forest_tpu_torch/losses/triplet_phase.py",
+                 "forest_tpu_torch/losses/evt_soft_neighborhood.py",
+                 "forest_tpu_torch/training/representation/diagnostics.py",
                  "chip_smoke.py"):
         assert must in names, must
 

@@ -439,6 +439,43 @@ def test_transposed_path_choice(n, d, io, mxu, path):
     assert tvv.cols_path(n, d, 17, mxu, io, aligned=False) == "slab"
 
 
+@pytest.mark.parametrize("tile", [512, 1024, 2048, 4096])
+def test_row_grid_does_not_follow_the_tpu_tile(tile):
+    n = 131072
+    assert tvv.rows_path(n, 128, 256) == "resident"
+    assert tvv.rows_path(n, 128, 256, mxu_bf16=True) == "mma"
+    assert tvv.rows_path(n, 128, 256, io_dtype=torch.bfloat16) == "mma"
+    # K6's float32 and rounded paths are K5's
+    assert tvv.rows_path(n, 128, 256) == tvq.vq_assign_path(n, 128, 256)
+    assert tvv.rows_path(n, 128, 256, True) == tvq.vq_assign_path(
+        n, 128, 256, True)
+    fn = tvv.make_assign(tile, False, torch.float32)
+    x, c = _data((64, 16, 12), seed=14)
+    np.testing.assert_array_equal(fn(t(x), t(c)).numpy(),
+                                  tvv.assign_reference(t(x), t(c)).numpy())
+    with pytest.raises(ValueError, match="multiple"):
+        tvv.make_assign(tile + 64, False)(t(x), t(c))
+
+
+@pytest.mark.parametrize("n,d,io,mxu,path", [
+    (333, 24, torch.float32, False, "resident"),  # any N: rows of 96 bytes
+    (333, 24, torch.float32, True, "mma"),
+    (333, 24, torch.bfloat16, False, "mma"),      # bf16 storage rounds
+    (333, 20, torch.bfloat16, True, "slab"),      # a bf16 row is 40 bytes
+    (333, 26, torch.float32, False, "slab"),      # D not a multiple of 4
+    (5, 7, torch.float32, False, "slab"),
+])
+def test_row_path_choice(n, d, io, mxu, path):
+    assert tvv.rows_path(n, d, 17, mxu, io) == path
+    assert tvv.rows_path(n, d, 17, mxu, io, aligned=False) == "slab"
+
+
+def test_row_path_falls_back_where_the_codebook_does_not_fit():
+    assert tvv.rows_path(64, 128, 256) == "resident"
+    assert tvv.rows_path(64, 128, 257) == "slab"
+    assert tvv.rows_path(64, 128, 4096, True) == "slab"
+
+
 # ---------------------------------------------------------------- on a card
 def _rule_ok(x, c, idx, c2_from=None):
     """chip_smoke.py's float64 rule: the chosen code's distance within
@@ -663,6 +700,51 @@ def test_path_choice_agrees_with_the_launchs_check_on_card(cuda_device, k):
         assert (err == 0) == fits, (mxu, err)
     torch.cuda.synchronize()
     assert (k == 256) == (tvq.vq_assign_path(n, d, k) == "resident")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16,io", [(False, torch.float32),
+                                         (True, torch.float32),
+                                         (True, torch.bfloat16)])
+def test_row_variant_at_every_tile_on_card(cuda_device, mxu_bf16, io):
+    """K6 gives the same indices at every TPU tile, on K5's products: its
+    float32 indices equal K5's float32 ones and, with bfloat16 operands
+    (float32 storage), K5's bfloat16 ones; argmin=False writes the
+    truncated row minimum of the same products."""
+    x, c = (t(a).to(cuda_device) for a in _data((131072, 128, 256),
+                                                 seed=30))
+    got = [tvv.make_assign(tile, mxu_bf16, io)(x, c)
+           for tile in (512, 1024, 2048, 4096)]
+    assert tvv.make_assign.last_path == ("mma" if mxu_bf16 else "resident")
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    if io == torch.float32:
+        assert torch.equal(got[0], tvq.vq_assign(x, c, mxu_bf16=mxu_bf16))
+    cf = c.to(io)
+    xp, cp = (x.to(io).bfloat16(), cf.bfloat16()) if mxu_bf16 else (x, c)
+    assert _rule_ok(xp, cp, got[0], c2_from=cf)
+    mins = tvv.make_assign(512, mxu_bf16, io, argmin=False)(x, c)
+    assert tvv.make_assign.last_path == ("mma" if mxu_bf16 else "resident")
+    ref = tvv.assign_reference(x, c, mxu_bf16, io, argmin=False)
+    diff = (mins.long() - ref.long()).abs()
+    assert diff.max() <= 1 and (diff != 0).sum() <= x.shape[0] // 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=str)
+def test_row_variant_paths_on_card(cuda_device, shape):
+    """Each shape on the path rows_path names, by the float64 rule; integer
+    inputs give the plain version exactly, ties and all."""
+    x, c = (t(a).to(cuda_device) for a in _data(shape, seed=31))
+    for mxu in (False, True):
+        idx = tvv.make_assign(512, mxu)(x, c)
+        assert tvv.make_assign.last_path == tvv.rows_path(*shape, mxu)
+        xp, cp = (x.bfloat16(), c.bfloat16()) if mxu else (x, c)
+        assert _rule_ok(xp, cp, idx, c2_from=c)
+    xi, ci = _integer_inputs(cuda_device)
+    for mxu in (False, True):
+        assert torch.equal(tvv.make_assign(128, mxu)(xi, ci),
+                           tvv.assign_reference(xi, ci, mxu))
 
 
 @pytest.mark.cuda

@@ -97,7 +97,12 @@ def jax_negative_draws(key, bsz, hw, n_anchors, pool):
 class record_bernoulli:
     """Context manager: records the uniform draw behind every
     ``jax.random.bernoulli`` call (bernoulli(key, p, shape) is
-    ``uniform(key, shape) < p``), in call order, as float32 tensors."""
+    ``uniform(key, shape) < p``), in call order, as float32 tensors. With
+    ``traced``, inside a function that is traced (``jax.jit``): the draws
+    are the trace's own arrays, which the function returns as outputs."""
+
+    def __init__(self, traced: bool = False):
+        self.traced = traced
 
     def __enter__(self):
         import jax
@@ -107,8 +112,8 @@ class record_bernoulli:
 
         def bernoulli(key, p=0.5, shape=None):
             shape = tuple(shape) if shape is not None else np.shape(p)
-            self.draws.append(t(np.asarray(
-                jax.random.uniform(key, shape, np.float32))))
+            u = jax.random.uniform(key, shape, np.float32)
+            self.draws.append(u if self.traced else t(np.asarray(u)))
             return self._orig(key, p, shape)
 
         jax.random.bernoulli = bernoulli
@@ -119,6 +124,52 @@ class record_bernoulli:
         return False
 
 
+_JITTED = {}
+
+
+def jax_step(jproc, params, batch, rng, weights, curriculum, train,
+             grad=True):
+    """The JAX step, jitted once per ``jproc`` (weights, curriculum and rng
+    are traced): -> ((loss, metrics), grads or None, dropout draws as
+    float32 tensors in call order)."""
+    import jax
+    import jax.numpy as jnp
+    key = (id(jproc), bool(train), bool(grad))
+    fn = _JITTED.get(key)
+    if fn is None:
+        step = (jax.value_and_grad(jproc, has_aux=True) if grad
+                else jproc)
+
+        def run(p, b, r, w, c):
+            with record_bernoulli(traced=True) as rec:
+                out = step(p, b, r, w, c, train)
+            return out, rec.draws
+
+        fn = _JITTED[key] = (jproc, jax.jit(run))
+    out, draws = fn[1](
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, rng,
+        {k: jnp.float32(v) for k, v in weights.items()},
+        {k: jnp.float32(v) for k, v in curriculum.items()})
+    draws = [t(np.asarray(d)) for d in draws]
+    return (out[0], out[1], draws) if grad else (out, None, draws)
+
+
+EVT_CODES = (7001, 7002, 7003)      # synthetic_frl_batch's codes
+EVT_COUNTS = {7001: 500, 7002: 300, 7003: 120}
+
+
+def jax_evt_tables(tmp_path):
+    """The JAX package's EVT tables over the synthetic batch's codes."""
+    from forest_tpu.losses.evt_soft_neighborhood import EvtDiffusionMetric
+    from forest_tpu_torch.losses.evt_soft_neighborhood import \
+        write_synthetic_confusion_csv
+    from forest_tpu.training.representation.step import build_evt_tables
+    csv_path = write_synthetic_confusion_csv(
+        tmp_path / "evt_confusion.csv", EVT_CODES)
+    return build_evt_tables(EvtDiffusionMetric(csv_path, EVT_COUNTS,
+                                               min_count=10))
+
+
 # --- the tiny training assembly of tests/frl_tiny.py, in both packages ---
 TINY_HW, TINY_T, TINY_B = 32, 15, 2
 TINY_MODEL = dict(type_in_channels=4, phase_in_channels=3, z_type_dim=8,
@@ -126,18 +177,30 @@ TINY_MODEL = dict(type_in_channels=4, phase_in_channels=3, z_type_dim=8,
                   phase_tcn_channels=(12, 12), phase_tcn_dilations=(1, 2))
 
 
+TYPE_WEIGHTS = ("spatial_infonce", "spectral_infonce", "vicreg_type")
+
+
 def type_weights():
-    """DEFAULT_WEIGHTS with the losses that are not ported set to 0."""
+    """DEFAULT_WEIGHTS with only the type pathway's three losses on."""
     from forest_tpu_torch.training.representation import step as tstep
-    return {k: (v if k in tstep.PORTED_WEIGHTS else 0.0)
+    return {k: (v if k in TYPE_WEIGHTS else 0.0)
             for k, v in tstep.DEFAULT_WEIGHTS.items()}
 
 
+def full_weights():
+    """DEFAULT_WEIGHTS: every loss but EVT on."""
+    from forest_tpu_torch.training.representation import step as tstep
+    return dict(tstep.DEFAULT_WEIGHTS)
+
+
 def build_tiny_steps(encoder_dropout=0.0, strategy=None, seed=0,
-                     edit_stats=None):
+                     edit_stats=None, phase_dropout=0.0, evt_tables=None,
+                     diag=False):
     """Both packages' process_batch over the same bindings, stats (after
-    ``edit_stats(stats)`` when given) and parameters. -> (jax process, jax
-    params, torch process, torch model, jax sampler)."""
+    ``edit_stats(stats)`` when given) and parameters; ``evt_tables`` from
+    the JAX ``build_evt_tables`` turns EVT on (weight 0.1 in the training
+    config) in both. -> (jax process, jax params, torch process, torch
+    model, jax sampler)."""
     from forest_tpu.data.bindings import parse_bindings as jparse
     from forest_tpu.data.cube_v2 import (synthetic_bindings,
                                          synthetic_feature_stats)
@@ -154,27 +217,36 @@ def build_tiny_steps(encoder_dropout=0.0, strategy=None, seed=0,
     from forest_tpu_torch.utils.flax_bridge import params_from_flax
     raw = synthetic_bindings("/dev/null", "/dev/null")
     training_cfg = {"sampling_strategy": strategy} if strategy else {}
+    if evt_tables is not None:
+        raw["losses"]["evt_soft_neighborhood"] = {
+            "feature": "static_categorical.evt", "weight": 0.1}
     jb, tb = jparse(raw), tparse(raw)
     stats = synthetic_feature_stats(jb)
     if edit_stats is not None:
         edit_stats(stats)
     jm = jrep.RepresentationModel(type_encoder_dropout=encoder_dropout,
+                                  phase_tcn_dropout=phase_dropout,
                                   **TINY_MODEL)
     params = flax_params(
         lambda k: jrep.init_variables(jm, k, num_timesteps=TINY_T), seed)
     jsampler = jcb.build_sampler(jb, training_cfg)
+    jcfg = jcb.build_step_config(jb, training_cfg)
     jproc = jstep.make_process_batch(
-        jm, JFB(jb, stats), jsampler, jcb.build_step_config(jb, {}), TINY_HW)
+        jm, JFB(jb, stats), jsampler, jcfg, TINY_HW, evt_tables=evt_tables,
+        diag=diag)
     tm = trep.RepresentationModel(type_encoder_dropout=encoder_dropout,
+                                  phase_tcn_dropout=phase_dropout,
                                   **TINY_MODEL)
     tm.load_state_dict(params_from_flax(params), strict=True)
+    tcfg = tcb.build_step_config(tb, training_cfg)
+    assert tcfg.evt_enabled == (evt_tables is not None) == jcfg.evt_enabled
     tproc = tstep.make_process_batch(
-        tm, TFB(tb, stats), tcb.build_sampler(tb, training_cfg),
-        tcb.build_step_config(tb, {}), TINY_HW, device="cpu")
+        tm, TFB(tb, stats), tcb.build_sampler(tb, training_cfg), tcfg,
+        TINY_HW, evt_tables=evt_tables, diag=diag, device="cpu")
     return jproc, params, tproc, tm, jsampler
 
 
-def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None):
+def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None, phase=None):
     """The port's StepDraws holding the raw draws the JAX step makes from
     ``rng`` (step.py: rng -> (k_anchor, k_neg, k_drop); anchors from
     split(k_anchor, B), negatives from split(k_neg, B), cross-batch
@@ -190,4 +262,4 @@ def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None):
     neg_j = jax.random.randint(jax.random.fold_in(k_neg, 7),
                                (TINY_B * a, cfg_xb_neg), 0, TINY_B * a)
     return tstep.StepDraws(jitter, supp_u, pool_u, pick_u, ti(neg_j),
-                           encoder)
+                           encoder, phase)
