@@ -109,7 +109,23 @@ Phases, each of which passes or raises (any failure exits non-zero):
     against ``checksums.json``, the native one having decoded every chunk;
     ``ForestDatasetV2`` patches of 32 x 32 from the fixture's bindings and
     one through ``FeatureBuilder`` on the card, finite; a new array with the
-    default compressor (zlib where libblosc does not load) read back.
+    default compressor (zlib where libblosc does not load) read back;
+14. the FRL training CLI as a user runs it: a synthetic v2 cube of 1536 x
+    1536 (chunks of 256; ``configs/frl_training_v1.yaml``'s split cuts it
+    into 16 train and 4 val patches of 256) in a temporary directory, then
+    ``train_representation.main`` on that YAML (its run root moved into the
+    temporary directory) and ``configs/frl_repr_model_v1.yaml`` unchanged,
+    the production sampling (300 anchors), B 12, for 2 epochs with
+    ``--phase-start-epoch 0`` (the phase losses on in epoch 1; the CLI
+    computes the stats), then resumed to 3 epochs under ``--profile``: the
+    resumed run must start at epoch 2 with the saved step; every loss
+    finite, ``skipped`` 0, phase pairs in epoch 1, K1 launched on every
+    train and validation step, K2 and K3 on every train step; the last
+    checkpoint served by ``EncoderService`` for one 256 x 256 request and
+    held to the plain model within phase 7's bound. Printed: per epoch the
+    steps, ms per step, the loader's wait share, the epoch's time and both
+    losses; the cube's build and the stats' time; host synchronisations
+    per step from the profiled epoch's trace.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -128,7 +144,8 @@ curriculum starts). ``--profile-vqvae`` does the same for
 device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
-kernel's source, launches by main path (serving and FRL training; for the
+kernel's source, launches by main path (serving, the FRL training step
+and the FRL training CLI; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep), error, times, and its bound: the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
@@ -1141,6 +1158,13 @@ def read_launches() -> dict:
 
 EVT_CODES = (7001, 7002, 7003)      # synthetic_frl_batch's EVT codes
 EVT_WEIGHT = 0.1
+# the production sampling strategy: 300 anchors per 256 x 256 patch
+PRODUCTION_SAMPLING = {
+    "grid": {"stride": 16, "exclude_border": 16, "jitter": {"radius": 4}},
+    "supplement": {"n": 104, "sampling": {
+        "type": "weighted",
+        "weight_by": ["static_mask.aoi", "static_mask.forest"]}},
+}
 
 
 def build_train_step(device: str = "cuda", evt_dir: Optional[Path] = None,
@@ -1187,13 +1211,8 @@ def build_train_step(device: str = "cuda", evt_dir: Optional[Path] = None,
         evt_tables = step_mod.build_evt_tables(EvtDiffusionMetric(
             csv_path, {c: 1000 for c in EVT_CODES}, min_count=10))
     bindings = parse_bindings(raw)
-    bindings.sampling_strategies["grid-plus-supplement"] = {
-        "grid": {"stride": 16, "exclude_border": 16,
-                 "jitter": {"radius": 4}},
-        "supplement": {"n": 104, "sampling": {
-            "type": "weighted",
-            "weight_by": ["static_mask.aoi", "static_mask.forest"]}},
-    }
+    bindings.sampling_strategies["grid-plus-supplement"] = \
+        PRODUCTION_SAMPLING
     fb = FeatureBuilder(bindings, synthetic_feature_stats(bindings))
     type_in = len(bindings.get_feature("type_encoder_input").channels)
     phase_in = len(bindings.get_feature("phase_ccdc").channels)
@@ -1428,6 +1447,196 @@ def evt_diag_step_check(device: str = "cuda") -> dict:
     del t
     torch.cuda.empty_cache()
     return res
+
+
+# phase 14: the FRL training CLI on a synthetic v2 cube of 1536 x 1536
+# (chunks of 256), which configs/frl_training_v1.yaml's split (blocks of
+# 4 x 4 patches of 256, min_aoi 0.3) cuts into 16 train and 4 val patches
+CLI_CUBE_HW, CLI_CHUNK = 1536, 256
+CLI_EPOCHS = 2
+
+
+def cli_configs(tmp: Path):
+    """The bindings (synthetic_bindings over the cube in ``tmp``, with the
+    production sampling strategy) and configs/frl_training_v1.yaml with its
+    run root in ``tmp``, written there. -> (training path, bindings
+    path)."""
+    import yaml
+
+    from forest_tpu_torch.data import synthetic_bindings
+    raw = synthetic_bindings(tmp / "cube.zarr", tmp / "stats.json")
+    raw["sampling-strategy"]["grid-plus-supplement"] = PRODUCTION_SAMPLING
+    bpath = tmp / "bindings.yaml"
+    bpath.write_text(yaml.safe_dump(raw))
+    training = yaml.safe_load((ROOT / "configs/frl_training_v1.yaml")
+                              .read_text())
+    training["run"]["run_root"] = str(tmp / "runs")
+    tpath = tmp / "training.yaml"
+    tpath.write_text(yaml.safe_dump(training))
+    return tpath, bpath
+
+
+def count_syncs(trace: Path) -> dict:
+    """Host synchronisations in a Chrome trace of torch.profiler, by
+    call."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    out = {}
+    for ev in events:
+        if ev.get("name") in SYNC_CALLS:
+            out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return out
+
+
+def cli_train_and_check(device: str = "cuda") -> dict:
+    """Phase 14: ``train_representation.main`` as a user runs it, on a
+    synthetic cube it computes the stats of, for CLI_EPOCHS epochs with the
+    phase losses on from epoch 1, then resumed for one epoch more under
+    ``--profile``; the resumed checkpoint served through EncoderService and
+    held to the plain model. -> per-epoch readings, the launches of K1-K3
+    on the path, host syncs per step."""
+    import numpy as np
+    import torch
+
+    from forest_tpu_torch.data.cube_v2 import build_synthetic_v2_cube
+    from forest_tpu_torch.serving import EncoderService
+    from forest_tpu_torch.training import train_representation as tr
+    from forest_tpu_torch.training.checkpointing import load_state_raw
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        build_synthetic_v2_cube(tmp / "cube.zarr", height=CLI_CUBE_HW,
+                                width=CLI_CUBE_HW, chunk_yx=CLI_CHUNK)
+        cube_s = time.perf_counter() - t0
+        tpath, bpath = cli_configs(tmp)
+        argv = ["--training", str(tpath), "--bindings", str(bpath),
+                "--model-config",
+                str(ROOT / "configs/frl_repr_model_v1.yaml"),
+                "--phase-start-epoch", "0"]
+        if device != "cuda":
+            argv += ["--device", device]
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()                                  # the main path
+        first = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS)])
+        exp = tmp / "runs" / "frl_v1"     # frl_training_v1.yaml's run
+        last = exp / "checkpoints" / "encoder_last.msgpack"
+        saved_step = int(np.asarray(load_state_raw(last)[0]["step"]))
+        resumed = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS + 1),
+                                  "--profile"])
+        launches = {k: v for k, v in read_launches().items()
+                    if k in ("bank_mix_fwd", "bank_mix_bwd",
+                             "scatter_add_rows")}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card \
+            else None
+        history = first["history"] + resumed["history"]
+        n_train = sum(h["train/n_steps"] for h in history)
+        n_val = sum(h["val/n_steps"] for h in history)
+        syncs = count_syncs(exp / "logs" / "trace" / "trace.json")
+
+        problems = []
+        if resumed["start_epoch"] != CLI_EPOCHS:
+            problems.append(f"resumed at epoch {resumed['start_epoch']}")
+        if resumed["state"].step != saved_step + \
+                resumed["history"][0]["train/n_steps"]:
+            problems.append(f"resumed step {resumed['state'].step} from "
+                            f"saved {saved_step}")
+        if [h["epoch"] for h in history] != list(range(CLI_EPOCHS + 1)):
+            problems.append(f"epochs {[h['epoch'] for h in history]}")
+        for h in history:
+            bad = [k for k, v in h.items() if "/loss_" in k
+                   and not np.isfinite(v)]
+            if bad or h["train/skipped"] != 0:
+                problems.append(f"epoch {h['epoch']}: non-finite {bad}, "
+                                f"skipped {h['train/skipped']}")
+        if history[1]["train/phase_pairs_valid"] <= 0:
+            problems.append("no phase pairs in epoch 1")
+        if launches["bank_mix_fwd"] < n_train + n_val or \
+                launches["bank_mix_bwd"] < n_train or \
+                launches["scatter_add_rows"] < n_train:
+            problems.append(f"{n_train} train and {n_val} val steps "
+                            f"launched {launches}")
+        for f in ("history.json", "provenance.json", "configs/model.yaml",
+                  "checkpoints/encoder_last.msgpack.json",
+                  "checkpoints/encoder_epoch_000.msgpack"):
+            if not (exp / f).exists():
+                problems.append(f"no {f}")
+        if problems:
+            raise AssertionError(f"training CLI: {problems}")
+
+        # the trained encoder, served
+        patch = resumed["ds_val"].get_patch(0)
+        svc = EncoderService(last, bpath, device=device, max_batch=8)
+        try:
+            served = svc.encode(patch, phase=True)
+        finally:
+            svc.close()
+        plain = check_against_plain(last, bpath, patch, served, device)
+        stats_s = first["stats_s"]
+        wait = cli_wait_probe(resumed, device)
+    epochs = [{
+        "epoch": h["epoch"], "n_steps": h["train/n_steps"],
+        "ms_per_step": 1e3 * h["train/step_s"] / h["train/n_steps"],
+        "wait_share": h["train/wait_s"] / h["train/epoch_time_s"],
+        "epoch_time_s": h["train/epoch_time_s"],
+        "val_epoch_time_s": h["val/epoch_time_s"],
+        "train_loss_total": h["train/loss_total"],
+        "val_loss_total": h["val/loss_total"],
+        "profiled": h["epoch"] == CLI_EPOCHS} for h in history]
+    traced_steps = resumed["history"][0]["train/n_steps"]
+    return {"cube_s": cube_s, "stats_s": stats_s, "epochs": epochs,
+            "launches": launches, "train_steps": n_train,
+            "val_steps": n_val, "saved_step": saved_step,
+            "resumed_step": resumed["state"].step,
+            "syncs_per_step": {k: v / traced_steps
+                               for k, v in syncs.items()},
+            "peak_memory_gb": peak_gb,
+            "served_rel_err_vs_plain": plain["z_type"]["rel_err_vs_plain"],
+            "one_batch": wait}
+
+
+def cli_wait_probe(ctx: dict, device: str, steps: int = 3) -> dict:
+    """Where a CLI step's wait and time go, after the path's launches were
+    read: one batch of the train set decoded on the host (``load_batch``),
+    its pinned copy to the device (``make_device_put``, synchronised), and
+    ``steps`` of the CLI's own train step on that resident batch (the
+    diagnostics on, as the CLI runs it), host clock around a synchronise."""
+    import numpy as np
+    import torch
+
+    from forest_tpu_torch.data.loader import make_device_put
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    ds, bsz = ctx["ds_train"], TRAIN_SHAPE[0]
+    t0 = time.perf_counter()
+    batch = ds.load_batch([i % len(ds) for i in range(bsz)])
+    load_s = time.perf_counter() - t0
+    batch["__sample_valid__"] = np.ones(bsz, bool)
+    sync()
+    t0 = time.perf_counter()
+    db = make_device_put(device, keep_host_keys=())(batch)
+    sync()
+    put_s = time.perf_counter() - t0
+    full = {k: torch.full((), float(v), device=device)
+            for k, v in ctx["weights"].items()}
+    cur = {"input_dropout_rate": torch.full((), 0.0, device=device),
+           "min_gate": torch.full((), 1.0, device=device)}
+    state, times = ctx["state"], []
+    for i in range(steps + 1):
+        sync()
+        t0 = time.perf_counter()
+        state, _ = ctx["train_step"](
+            state, db, torch.Generator(device=device).manual_seed(i), full,
+            cur)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"load_batch_s": load_s, "device_put_s": put_s,
+            "batch_mb": sum(v.nbytes for v in batch.values()) / 1e6,
+            "resident_step_ms": sorted(times[1:])[steps // 2]}
 
 
 def build_vqvae_step(zarr, run_dir, device: str = "cuda"):
@@ -1974,6 +2183,9 @@ def main() -> int:
     vqvae = vqvae_train_and_check()                           # phase 12
     log(f"vqvae training: {json.dumps(vqvae)}")
     fixture = check_fixture()                                 # phase 13
+    torch.cuda.empty_cache()
+    cli = cli_train_and_check()                               # phase 14
+    log(f"training CLI: {json.dumps(cli)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -2021,12 +2233,36 @@ def main() -> int:
     log(f"vqvae train step {vqvae['step_ms_median']:.2f} ms median of 50 on "
         f"a resident batch of 64, {vqvae['step_ms_in_cli_mean'][-1]:.2f} ms "
         f"mean inside the CLI's last epoch ({card})")
+    for e in cli["epochs"]:
+        log(f"training CLI epoch {e['epoch']}: {e['n_steps']} steps, "
+            f"{e['ms_per_step']:.1f} ms per step, loader wait "
+            f"{100 * e['wait_share']:.1f} % of the epoch's "
+            f"{e['epoch_time_s']:.2f} s (validation "
+            f"{e['val_epoch_time_s']:.2f} s), train/loss_total "
+            f"{e['train_loss_total']:.4f}, val/loss_total "
+            f"{e['val_loss_total']:.4f}"
+            + (" (under torch.profiler)" if e["profiled"] else "")
+            + f" ({card})")
+    log(f"training CLI: cube of {CLI_CUBE_HW}^2 built in "
+        f"{cli['cube_s']:.2f} s, stats in {cli['stats_s']:.2f} s; host "
+        f"syncs per step (profiled epoch): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cli["syncs_per_step"].items())
+        + f"; peak {cli['peak_memory_gb']:.2f} GB; K1/K2/K3 launches "
+        f"{cli['launches']} in {cli['train_steps']} train and "
+        f"{cli['val_steps']} val steps ({card})")
+    one = cli["one_batch"]
+    log(f"training CLI, one batch of {TRAIN_SHAPE[0]}: decoded on the host "
+        f"in {one['load_batch_s']:.3f} s, {one['batch_mb']:.1f} MB pinned "
+        f"and copied to the card in {one['device_put_s']:.3f} s, the CLI's "
+        f"step on it resident {one['resident_step_ms']:.1f} ms (median of 3, "
+        f"diagnostics on) ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [
         kernel_entry("bank_mix_fwd", bf16,
                      {"serving": serve["launches"],
-                      "training": steps["bank_mix_fwd"]},
+                      "training": steps["bank_mix_fwd"],
+                      "training_cli": cli["launches"]["bank_mix_fwd"]},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],
@@ -2036,12 +2272,14 @@ def main() -> int:
                      serve_rel_err_vs_plain=plain["z_type"][
                          "rel_err_vs_plain"]),
         kernel_entry("bank_mix_bwd", bwd_bf16,
-                     {"serving": 0, "training": steps["bank_mix_bwd"]},
+                     {"serving": 0, "training": steps["bank_mix_bwd"],
+                      "training_cli": cli["launches"]["bank_mix_bwd"]},
                      f32_ms=bwd_f32["ms"], f32_plain_ms=bwd_f32["plain_ms"],
                      f32_bound_ms=bwd_f32["bound_ms"],
                      f32_max_abs_err=bwd_f32["max_abs_err"]),
         kernel_entry("scatter_add_rows", scat,
-                     {"serving": 0, "training": steps["scatter_add_rows"]},
+                     {"serving": 0, "training": steps["scatter_add_rows"],
+                      "training_cli": cli["launches"]["scatter_add_rows"]},
                      checked_ms=scat["checked_ms"],
                      back_to_back_ms=scat["back_to_back_ms"],
                      library_back_to_back_ms=scat[
@@ -2087,6 +2325,9 @@ def main() -> int:
                      tiles=variants["vq_variant_cols"]["tiles"]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    idle += [f"{k['name']} on {path}" for k in kernels[:3]
+             for path, n in k["launches_by_path"].items()
+             if path != "serving" and n <= 0]
     if idle or [k["name"] for k in kernels] != list(KERNELS):
         raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))

@@ -230,45 +230,12 @@ class ForestDatasetV2:
 
     __getitem__ = get_patch
 
-    def set_wire_layout(self, enabled: bool) -> None:
-        """Toggle channel-major batch assembly for the compact H2D wire.
-
-        ``load_batch`` then emits each group as [B, C, (T,) H, W] under a
-        ``<name>__cm`` key (data/wire.py): every source channel lands in
-        the batch buffer as one CONTIGUOUS memcpy, where the channel-last
-        ``np.stack`` writes 4-byte elements at C-strides (~20x slower on
-        the 1-core host -- it was 87% of production FRL batch assembly).
-        ``decode_wire_batch`` restores channel-last inside the jitted step
-        with one on-device relayout. Per-patch access (``get_patch``) and
-        the default collate keep the channel-last contract."""
-        self._channel_major = bool(enabled)
-
     def load_batch(self, indices) -> Dict[str, np.ndarray]:
-        """Stack patches [B, ...] per group (the collate contract); with
-        the wire layout enabled, assemble channel-major instead (see
-        :meth:`set_wire_layout`)."""
-        idx = [int(i) for i in np.atleast_1d(indices)]
-        if not getattr(self, "_channel_major", False):
-            items = [self.get_patch(i) for i in idx]
-            return {k: np.stack([it[k] for it in items]) for k in items[0]}
-        p = self.patch_size
-        wins = [self.patches[self._current_indices[i]] for i in idx]
-        out: Dict[str, np.ndarray] = {}
-        for name, g in self.bindings.dataset.items():
-            c = len(g.channels)
-            shape = ((len(idx), c, self.num_timesteps, p, p) if g.temporal
-                     else (len(idx), c, p, p))
-            # zeros == the boundary-pad contract for ragged edge patches
-            # (calloc pages; full patches overwrite every element).
-            buf = np.zeros(shape, np.float32)
-            for bi, win in enumerate(wins):
-                for ci, ch in enumerate(g.channels):
-                    buf[bi, ci, ..., :win.height, :win.width] = \
-                        self._load_source_channel(ch, g.temporal, win)
-            out[name + "__cm"] = buf
-        out["__window__"] = np.asarray(
-            [[w.row_start, w.col_start] for w in wins], np.int64)
-        return out
+        """Stack patches [B, ...] per group (the collate contract). The
+        JAX package's channel-major assembly for its compact H2D wire is
+        not ported: the port ports no wire."""
+        items = [self.get_patch(int(i)) for i in np.atleast_1d(indices)]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 __all__ = ["ForestDatasetV2"]

@@ -1,10 +1,10 @@
 """Assemble StepConfig / loss weights / sampler from parsed YAML configs.
 
 Port of ``forest_tpu/training/representation/config_builders.py``
-(``build_step_config``, ``build_loss_weights``, ``build_sampler``): every
-knob is read with an explicit default so partial configs work; losses
-declared in the bindings ``losses:`` section override StepConfig fields.
-The curriculum builder belongs to the epoch loop and is not ported yet.
+(``build_step_config``, ``build_loss_weights``, ``build_sampler``,
+``build_curricula``): every knob is read with an explicit default so partial
+configs work; losses declared in the bindings ``losses:`` section override
+StepConfig fields.
 """
 from __future__ import annotations
 
@@ -171,4 +171,50 @@ def build_sampler(bindings: BindingsConfig,
                                  "jitter": {"radius": 4}})
 
 
-__all__ = ["build_step_config", "build_loss_weights", "build_sampler"]
+def build_curricula(training_cfg: Dict[str, Any],
+                    bindings: Optional[BindingsConfig] = None
+                    ) -> Dict[str, Any]:
+    """Training-YAML curriculum keys win; absent ones fall back to the
+    original project's placement: per-loss ``curriculum: {start_epoch,
+    ramp_epochs}`` blocks inside the bindings' phase losses drive the phase
+    gate."""
+    cur = training_cfg.get("curriculum", {}) or {}
+    phase_start, phase_ramp = 0, 1
+    if bindings is not None:
+        blocks = []
+        for name in ("phase_neighborhood", "phase_spread_ranking",
+                     "phase_recovery_discrimination"):
+            c = ((bindings.losses or {}).get(name) or {}).get("curriculum")
+            if isinstance(c, dict):
+                blocks.append((int(c.get("start_epoch", 0)),
+                               int(c.get("ramp_epochs", 1)), name))
+        if blocks:
+            # One gate for all phase losses: the EARLIEST block (start and
+            # ramp from the same loss), with a warning when the per-loss
+            # schedules disagree (the original gates each loss on its own).
+            blocks.sort()
+            phase_start, phase_ramp, _ = blocks[0]
+            if len({(s, r) for s, r, _ in blocks}) > 1:
+                import warnings
+                warnings.warn(
+                    "bindings declare divergent per-loss phase curricula "
+                    f"{[(n, s, r) for s, r, n in blocks]}; this repo's "
+                    "single phase gate uses the earliest "
+                    f"(start={phase_start}, ramp={phase_ramp}) -- set "
+                    "training curriculum.phase_start_epoch explicitly to "
+                    "override", stacklevel=2)
+    return {
+        "input_dropout": cur.get("input_dropout", 0.0),
+        "smoothing_freeze_until": cur.get("smoothing_freeze_until", 0),
+        "smoothing_ramp_epochs": cur.get("smoothing_ramp_epochs", 1),
+        "phase_start_epoch": cur.get("phase_start_epoch", phase_start),
+        "phase_ramp_epochs": cur.get("phase_ramp_epochs", phase_ramp),
+        "phase_ramped_losses": cur.get(
+            "phase_ramped_losses",
+            ["phase_neighborhood", "phase_spread", "recovery_disc",
+             "vicreg_phase", "type_leakage"]),
+    }
+
+
+__all__ = ["build_step_config", "build_loss_weights", "build_sampler",
+           "build_curricula"]

@@ -22,10 +22,13 @@ for a TPU kernel's batch limit), its cross-replica ``axis_name`` reductions
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
+
+from forest_tpu_torch.utils import flax_bridge
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -54,19 +57,48 @@ class FRLTrainState:
     """The model (its parameters are the trained state), AdamW's first and
     second moments by parameter name, the number of updates applied
     (``count``; it also indexes the learning-rate schedule) and the number
-    of steps taken (``step``; it also counts skipped ones)."""
+    of steps taken (``step``; it also counts skipped ones).
+    :meth:`state_dict` / :meth:`load_state_dict` speak the JAX package's
+    checkpoint layout of its ``FRLTrainState`` (``params``, ``opt_state``,
+    ``step``), so either package resumes the other's checkpoints."""
     model: nn.Module
     mu: Dict[str, torch.Tensor] = field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
     count: int = 0
     step: int = 0
+    scheduled: bool = True      # the learning rate is a schedule
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "params": flax_bridge.params_to_flax(
+                dict(self.model.named_parameters())),
+            "opt_state": flax_bridge.opt_state_to_flax(
+                self.mu, self.nu, self.count, self.scheduled),
+            "step": np.asarray(self.step, np.int32),
+        }
+
+    def load_state_dict(self, tree: Dict[str, Any]) -> "FRLTrainState":
+        """Restore in place from a tree of :meth:`state_dict`'s layout, as
+        either package wrote it; tensors keep their device."""
+        dev = next(self.model.parameters()).device
+        params = flax_bridge.params_from_flax(tree["params"])
+        mu, nu, count = flax_bridge.opt_state_from_flax(tree["opt_state"])
+        if set(mu) != set(self.mu) or set(nu) != set(self.mu):
+            raise ValueError("optimizer state does not match the model: "
+                             f"{sorted(set(mu) ^ set(self.mu))}")
+        self.model.load_state_dict(params, strict=True)
+        self.mu = {n: v.to(dev) for n, v in mu.items()}
+        self.nu = {n: v.to(dev) for n, v in nu.items()}
+        self.count = count
+        self.step = int(np.asarray(tree["step"]))
+        return self
 
 
 def init_train_state(model: nn.Module, optimizer: AdamW) -> FRLTrainState:
-    del optimizer  # the state's layout does not depend on the settings
     zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     return FRLTrainState(model, zeros,
-                         {n: torch.zeros_like(p) for n, p in zeros.items()})
+                         {n: torch.zeros_like(p) for n, p in zeros.items()},
+                         scheduled=callable(optimizer.learning_rate))
 
 
 def global_norm(grads) -> torch.Tensor:

@@ -62,8 +62,8 @@ class VQVAETrainState:
     def state_dict(self) -> Dict[str, Any]:
         return {
             "params": self.params,
-            "opt_state": flax_bridge.vqvae_opt_state_to_flax(
-                self.mu, self.nu, self.count, self.scheduled),
+            "opt_state": flax_bridge.opt_state_to_flax(
+                self.mu, self.nu, self.count, self.scheduled, masked=True),
             "vq_stats": flax_bridge.vq_stats_to_flax(self.vq_stats),
             "step": np.asarray(self.step, np.int32),
         }
@@ -74,7 +74,7 @@ class VQVAETrainState:
         dev = next(self.model.parameters()).device
         self.model.load_state_dict(
             flax_bridge.params_from_flax(tree["params"]), strict=True)
-        mu, nu, count = flax_bridge.vqvae_opt_state_from_flax(
+        mu, nu, count = flax_bridge.opt_state_from_flax(
             tree["opt_state"])
         if set(mu) != set(self.mu):
             raise ValueError("optimizer state does not match the model: "

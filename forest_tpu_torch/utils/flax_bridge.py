@@ -15,10 +15,10 @@ AdamW's moments have the layout of the parameters, so
 :func:`adam_state_from_flax` / :func:`adam_state_to_flax` carry optax's
 ``mu``, ``nu`` and ``count`` over with the same rules.
 :func:`vq_stats_from_flax` / :func:`vq_stats_to_flax` carry the EMA
-codebook state, and :func:`vqvae_opt_state_to_flax` /
-:func:`vqvae_opt_state_from_flax` the optimizer state of the VQ-VAE step in
-the layout ``flax.serialization`` gives optax's
-``chain(clip_by_global_norm, adamw(mask))``.
+codebook state, and :func:`opt_state_to_flax` / :func:`opt_state_from_flax`
+the optimizer state of the FRL and VQ-VAE steps in the layout
+``flax.serialization`` gives optax's ``chain(clip_by_global_norm,
+adamw(...))`` (with a weight-decay mask for the VQ-VAE).
 
 The Sobel features keep forest_tpu's channel-interleaved layout (gx(c),
 gy(c) adjacent), so ``mix_backbone``'s input channels need no permutation.
@@ -125,24 +125,26 @@ def vq_stats_to_flax(stats) -> Dict[str, np.ndarray]:
             for f in stats._fields}
 
 
-def vqvae_opt_state_to_flax(mu: Mapping[str, torch.Tensor],
-                            nu: Mapping[str, torch.Tensor], count: int,
-                            scheduled: bool) -> Dict[str, Any]:
-    """The VQ-VAE step's optimizer state as ``flax.serialization`` lays out
-    optax's ``chain(clip_by_global_norm, adamw(mask=...))``: "0" the
-    clipping (no state), "1" AdamW = {"0": Adam's count, mu, nu, "1": the
-    masked weight decay (no state), "2": the learning-rate scaling, which
-    counts steps when the rate is a schedule (``scheduled``)}."""
+def opt_state_to_flax(mu: Mapping[str, torch.Tensor],
+                      nu: Mapping[str, torch.Tensor], count: int,
+                      scheduled: bool, masked: bool = False
+                      ) -> Dict[str, Any]:
+    """A step's optimizer state as ``flax.serialization`` lays out optax's
+    ``chain(clip_by_global_norm, adamw(...))``: "0" the clipping (no
+    state), "1" AdamW = {"0": Adam's count, mu, nu, "1": the weight decay
+    (no state; ``{"inner_state": {}}`` when it is ``masked``, as the
+    VQ-VAE's is), "2": the learning-rate scaling, which counts steps when
+    the rate is a schedule (``scheduled``)}."""
     fmu, fnu, n = adam_state_to_flax(mu, nu, count)
     cnt = np.asarray(n, np.int32)
     return {"0": {}, "1": {
         "0": {"count": cnt, "mu": fmu, "nu": fnu},
-        "1": {"inner_state": {}},
+        "1": {"inner_state": {}} if masked else {},
         "2": {"count": cnt.copy()} if scheduled else {}}}
 
 
-def vqvae_opt_state_from_flax(tree: Mapping[str, Any]):
-    """Inverse of :func:`vqvae_opt_state_to_flax` -> (mu, nu, count)."""
+def opt_state_from_flax(tree: Mapping[str, Any]):
+    """Inverse of :func:`opt_state_to_flax` -> (mu, nu, count)."""
     adam = tree["1"]["0"]
     return adam_state_from_flax(adam["mu"], adam["nu"],
                                 np.asarray(adam["count"]))
@@ -150,4 +152,4 @@ def vqvae_opt_state_from_flax(tree: Mapping[str, Any]):
 
 __all__ = ["params_from_flax", "params_to_flax", "adam_state_from_flax",
            "adam_state_to_flax", "vq_stats_from_flax", "vq_stats_to_flax",
-           "vqvae_opt_state_to_flax", "vqvae_opt_state_from_flax"]
+           "opt_state_to_flax", "opt_state_from_flax"]

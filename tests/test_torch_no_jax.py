@@ -45,6 +45,9 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/ops/scatter.py",
                  "forest_tpu_torch/training/representation/step.py",
                  "forest_tpu_torch/training/representation/train_step.py",
+                 "forest_tpu_torch/training/representation/loops.py",
+                 "forest_tpu_torch/training/train_representation.py",
+                 "forest_tpu_torch/data/stats.py",
                  "forest_tpu_torch/ops/vq.py",
                  "forest_tpu_torch/ops/vq_variants.py",
                  "forest_tpu_torch/models/vqvae.py",

@@ -246,20 +246,20 @@ def build_tiny_steps(encoder_dropout=0.0, strategy=None, seed=0,
     return jproc, params, tproc, tm, jsampler
 
 
-def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None, phase=None):
+def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None, phase=None,
+                    bsz=TINY_B, hw=TINY_HW):
     """The port's StepDraws holding the raw draws the JAX step makes from
-    ``rng`` (step.py: rng -> (k_anchor, k_neg, k_drop); anchors from
-    split(k_anchor, B), negatives from split(k_neg, B), cross-batch
-    negatives from fold_in(k_neg, 7))."""
+    ``rng`` for a batch of ``bsz`` patches of ``hw``² (step.py: rng ->
+    (k_anchor, k_neg, k_drop); anchors from split(k_anchor, B), negatives
+    from split(k_neg, B), cross-batch negatives from fold_in(k_neg, 7))."""
     import jax
     from forest_tpu_torch.training.representation import step as tstep
     k_anchor, k_neg, _ = jax.random.split(rng, 3)
-    a = jsampler.n_anchors(TINY_HW, TINY_HW)
-    jitter, supp_u = jax_anchor_draws(k_anchor, TINY_B, TINY_HW, jsampler.cfg)
+    a = jsampler.n_anchors(hw, hw)
+    jitter, supp_u = jax_anchor_draws(k_anchor, bsz, hw, jsampler.cfg)
     pool_u, pick_u = jax_negative_draws(
-        k_neg, TINY_B, TINY_HW, a,
-        min(tstep.NEG_POOL_SIZE, TINY_HW * TINY_HW))
+        k_neg, bsz, hw, a, min(tstep.NEG_POOL_SIZE, hw * hw))
     neg_j = jax.random.randint(jax.random.fold_in(k_neg, 7),
-                               (TINY_B * a, cfg_xb_neg), 0, TINY_B * a)
+                               (bsz * a, cfg_xb_neg), 0, bsz * a)
     return tstep.StepDraws(jitter, supp_u, pool_u, pick_u, ti(neg_j),
                            encoder, phase)
