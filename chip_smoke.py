@@ -125,7 +125,25 @@ Phases, each of which passes or raises (any failure exits non-zero):
     held to the plain model within phase 7's bound. Printed: per epoch the
     steps, ms per step, the loader's wait share, the epoch's time and both
     losses; the cube's build and the stats' time; host synchronisations
-    per step from the profiled epoch's trace.
+    per step from the profiled epoch's trace;
+15. the eval tools as a user runs them, on phase 14's cube and the last
+    checkpoint it trained (the v1 widths, bf16 smoothing), each with the
+    launch counts set to 0 just before it and read just after: (a)
+    ``export_embeddings.main`` with ``--phase`` over all 36 patches of 256
+    (batches of 4): float16 ``z_type`` [1536, 1536, 48] and ``z_phase``
+    [15, 1536, 1536, 8], finite inside the AOI, one patch within phase 7's
+    bound of the model run with K1's plain version, K1 launched on every
+    batch; (b) ``embed_locations.main`` on 50 points (5 off the cube) at
+    patches of 256: every column family, ``valid`` 0 off the cube, each
+    point's ``z_type_*`` within a float16 rounding of (a)'s export there;
+    (c) ``train_probe.main`` for 2 epochs on ``infonce_type_spectral``
+    (patches of 128, B 4): two history rows, a finite val R^2,
+    ``probe_best.npz`` and ``probe_final.npz``; (d) ``phase_probe.main``
+    with ``--design full``: finite train and val metrics, W of [8 + 48 +
+    20 + 1, C]. Printed: each tool's seconds and K1's launches, the
+    export's patches per second and MB written, and where one of its
+    batches' time goes (decode, copy, the card's time, copy back, zarr
+    write).
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -144,8 +162,8 @@ curriculum starts). ``--profile-vqvae`` does the same for
 device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
-kernel's source, launches by main path (serving, the FRL training step
-and the FRL training CLI; for the
+kernel's source, launches by main path (serving, the FRL training step,
+the FRL training CLI and, for K1, the eval tools; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep), error, times, and its bound: the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
@@ -995,11 +1013,10 @@ def serve_and_check(ckpt: Path, bpath: Path, patches,
             "checked": outs_m[1]}
 
 
-def check_against_plain(ckpt: Path, bpath: Path, patch, served,
-                        device: str = "cuda") -> dict:
-    """Run the served model on one patch with the kernel and with its plain
-    version swapped in; compare both to the HTTP response."""
-    import numpy as np
+def kernel_and_plain(ckpt: Path, bpath: Path, patch,
+                     device: str = "cuda"):
+    """The checkpoint's model on one patch with the kernel and with its
+    plain version swapped in -> (z_type, z_phase) of each, float32 numpy."""
     import torch
 
     from forest_tpu_torch.data import parse_bindings
@@ -1021,12 +1038,23 @@ def check_against_plain(ckpt: Path, bpath: Path, patch, served,
             zp = model.forward_phase(px, zt)
         return zt[0].float().cpu().numpy(), zp[0].float().cpu().numpy()
 
-    kernel_zt, kernel_zp = run()
+    kernel = run()
     spatial.bank_mix = sm.bank_mix_reference
     try:
-        plain_zt, plain_zp = run()
+        plain = run()
     finally:
         spatial.bank_mix = sm.bank_mix
+    return kernel, plain
+
+
+def check_against_plain(ckpt: Path, bpath: Path, patch, served,
+                        device: str = "cuda") -> dict:
+    """Run the served model on one patch with the kernel and with its plain
+    version swapped in; compare both to the HTTP response."""
+    import numpy as np
+
+    (kernel_zt, kernel_zp), (plain_zt, plain_zp) = kernel_and_plain(
+        ckpt, bpath, patch, device)
     res = {}
     for name, k, p, s in (("z_type", kernel_zt, plain_zt, served["z_type"]),
                           ("z_phase", kernel_zp, plain_zp,
@@ -1487,13 +1515,14 @@ def count_syncs(trace: Path) -> dict:
     return out
 
 
-def cli_train_and_check(device: str = "cuda") -> dict:
+def cli_train_and_check(tmp: Path, device: str = "cuda") -> dict:
     """Phase 14: ``train_representation.main`` as a user runs it, on a
     synthetic cube it computes the stats of, for CLI_EPOCHS epochs with the
     phase losses on from epoch 1, then resumed for one epoch more under
     ``--profile``; the resumed checkpoint served through EncoderService and
-    held to the plain model. -> per-epoch readings, the launches of K1-K3
-    on the path, host syncs per step."""
+    held to the plain model. The cube, the bindings and the run stay in
+    ``tmp`` for phase 15. -> per-epoch readings, the launches of K1-K3 on
+    the path, host syncs per step."""
     import numpy as np
     import torch
 
@@ -1502,79 +1531,77 @@ def cli_train_and_check(device: str = "cuda") -> dict:
     from forest_tpu_torch.training import train_representation as tr
     from forest_tpu_torch.training.checkpointing import load_state_raw
 
-    with tempfile.TemporaryDirectory() as d:
-        tmp = Path(d)
-        t0 = time.perf_counter()
-        build_synthetic_v2_cube(tmp / "cube.zarr", height=CLI_CUBE_HW,
-                                width=CLI_CUBE_HW, chunk_yx=CLI_CHUNK)
-        cube_s = time.perf_counter() - t0
-        tpath, bpath = cli_configs(tmp)
-        argv = ["--training", str(tpath), "--bindings", str(bpath),
-                "--model-config",
-                str(ROOT / "configs/frl_repr_model_v1.yaml"),
-                "--phase-start-epoch", "0"]
-        if device != "cuda":
-            argv += ["--device", device]
-        on_card = torch.device(device).type == "cuda"
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        reset_launches()                                  # the main path
-        first = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS)])
-        exp = tmp / "runs" / "frl_v1"     # frl_training_v1.yaml's run
-        last = exp / "checkpoints" / "encoder_last.msgpack"
-        saved_step = int(np.asarray(load_state_raw(last)[0]["step"]))
-        resumed = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS + 1),
-                                  "--profile"])
-        launches = {k: v for k, v in read_launches().items()
-                    if k in ("bank_mix_fwd", "bank_mix_bwd",
-                             "scatter_add_rows")}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card \
-            else None
-        history = first["history"] + resumed["history"]
-        n_train = sum(h["train/n_steps"] for h in history)
-        n_val = sum(h["val/n_steps"] for h in history)
-        syncs = count_syncs(exp / "logs" / "trace" / "trace.json")
+    t0 = time.perf_counter()
+    build_synthetic_v2_cube(tmp / "cube.zarr", height=CLI_CUBE_HW,
+                            width=CLI_CUBE_HW, chunk_yx=CLI_CHUNK)
+    cube_s = time.perf_counter() - t0
+    tpath, bpath = cli_configs(tmp)
+    argv = ["--training", str(tpath), "--bindings", str(bpath),
+            "--model-config",
+            str(ROOT / "configs/frl_repr_model_v1.yaml"),
+            "--phase-start-epoch", "0"]
+    if device != "cuda":
+        argv += ["--device", device]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()                                  # the main path
+    first = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS)])
+    exp = tmp / "runs" / "frl_v1"     # frl_training_v1.yaml's run
+    last = exp / "checkpoints" / "encoder_last.msgpack"
+    saved_step = int(np.asarray(load_state_raw(last)[0]["step"]))
+    resumed = tr.main(argv + ["--num-epochs", str(CLI_EPOCHS + 1),
+                              "--profile"])
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("bank_mix_fwd", "bank_mix_bwd",
+                         "scatter_add_rows")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card \
+        else None
+    history = first["history"] + resumed["history"]
+    n_train = sum(h["train/n_steps"] for h in history)
+    n_val = sum(h["val/n_steps"] for h in history)
+    syncs = count_syncs(exp / "logs" / "trace" / "trace.json")
 
-        problems = []
-        if resumed["start_epoch"] != CLI_EPOCHS:
-            problems.append(f"resumed at epoch {resumed['start_epoch']}")
-        if resumed["state"].step != saved_step + \
-                resumed["history"][0]["train/n_steps"]:
-            problems.append(f"resumed step {resumed['state'].step} from "
-                            f"saved {saved_step}")
-        if [h["epoch"] for h in history] != list(range(CLI_EPOCHS + 1)):
-            problems.append(f"epochs {[h['epoch'] for h in history]}")
-        for h in history:
-            bad = [k for k, v in h.items() if "/loss_" in k
-                   and not np.isfinite(v)]
-            if bad or h["train/skipped"] != 0:
-                problems.append(f"epoch {h['epoch']}: non-finite {bad}, "
-                                f"skipped {h['train/skipped']}")
-        if history[1]["train/phase_pairs_valid"] <= 0:
-            problems.append("no phase pairs in epoch 1")
-        if launches["bank_mix_fwd"] < n_train + n_val or \
-                launches["bank_mix_bwd"] < n_train or \
-                launches["scatter_add_rows"] < n_train:
-            problems.append(f"{n_train} train and {n_val} val steps "
-                            f"launched {launches}")
-        for f in ("history.json", "provenance.json", "configs/model.yaml",
-                  "checkpoints/encoder_last.msgpack.json",
-                  "checkpoints/encoder_epoch_000.msgpack"):
-            if not (exp / f).exists():
-                problems.append(f"no {f}")
-        if problems:
-            raise AssertionError(f"training CLI: {problems}")
+    problems = []
+    if resumed["start_epoch"] != CLI_EPOCHS:
+        problems.append(f"resumed at epoch {resumed['start_epoch']}")
+    if resumed["state"].step != saved_step + \
+            resumed["history"][0]["train/n_steps"]:
+        problems.append(f"resumed step {resumed['state'].step} from "
+                        f"saved {saved_step}")
+    if [h["epoch"] for h in history] != list(range(CLI_EPOCHS + 1)):
+        problems.append(f"epochs {[h['epoch'] for h in history]}")
+    for h in history:
+        bad = [k for k, v in h.items() if "/loss_" in k
+               and not np.isfinite(v)]
+        if bad or h["train/skipped"] != 0:
+            problems.append(f"epoch {h['epoch']}: non-finite {bad}, "
+                            f"skipped {h['train/skipped']}")
+    if history[1]["train/phase_pairs_valid"] <= 0:
+        problems.append("no phase pairs in epoch 1")
+    if launches["bank_mix_fwd"] < n_train + n_val or \
+            launches["bank_mix_bwd"] < n_train or \
+            launches["scatter_add_rows"] < n_train:
+        problems.append(f"{n_train} train and {n_val} val steps "
+                        f"launched {launches}")
+    for f in ("history.json", "provenance.json", "configs/model.yaml",
+              "checkpoints/encoder_last.msgpack.json",
+              "checkpoints/encoder_epoch_000.msgpack"):
+        if not (exp / f).exists():
+            problems.append(f"no {f}")
+    if problems:
+        raise AssertionError(f"training CLI: {problems}")
 
-        # the trained encoder, served
-        patch = resumed["ds_val"].get_patch(0)
-        svc = EncoderService(last, bpath, device=device, max_batch=8)
-        try:
-            served = svc.encode(patch, phase=True)
-        finally:
-            svc.close()
-        plain = check_against_plain(last, bpath, patch, served, device)
-        stats_s = first["stats_s"]
-        wait = cli_wait_probe(resumed, device)
+    # the trained encoder, served
+    patch = resumed["ds_val"].get_patch(0)
+    svc = EncoderService(last, bpath, device=device, max_batch=8)
+    try:
+        served = svc.encode(patch, phase=True)
+    finally:
+        svc.close()
+    plain = check_against_plain(last, bpath, patch, served, device)
+    stats_s = first["stats_s"]
+    wait = cli_wait_probe(resumed, device)
     epochs = [{
         "epoch": h["epoch"], "n_steps": h["train/n_steps"],
         "ms_per_step": 1e3 * h["train/step_s"] / h["train/n_steps"],
@@ -1637,6 +1664,262 @@ def cli_wait_probe(ctx: dict, device: str, steps: int = 3) -> dict:
     return {"load_batch_s": load_s, "device_put_s": put_s,
             "batch_mb": sum(v.nbytes for v in batch.values()) / 1e6,
             "resident_step_ms": sorted(times[1:])[steps // 2]}
+
+
+# phase 15: the eval tools on phase 14's cube and last checkpoint
+EVAL_POINTS, EVAL_POINTS_OUTSIDE = 50, 5
+EVAL_PROBE_EPOCHS = 2
+EVAL_PCA_K = 20                 # phase_probe's default interaction PCA k
+F16_REL = 2.0 ** -10            # one float16 rounding, relative
+
+
+def _timed(fn, *args, **kw):
+    """-> (fn's result, seconds, K1's launches), the count set to 0 just
+    before and read just after."""
+    import torch
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()["bank_mix_fwd"]
+
+
+def export_batch_probe(tmp: Path, ckpt: Path, bpath: Path, ds,
+                       device: str) -> dict:
+    """Where a batch of the export's time goes, after its launches were
+    read: 4 patches decoded on the host (``load_batch``), their copy to the
+    device, the type and dense phase paths on the device (warm, host clock
+    around a synchronise), the float16 copy back, and the zarr write of the
+    batch (``export_embeddings._drain`` into arrays of a scratch group, one
+    thread, as the export's writer runs it)."""
+    import torch
+
+    from forest_tpu_torch.data import zarrlite as zl
+    from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    from forest_tpu_torch.eval import export_embeddings as ee
+    from forest_tpu_torch.eval import frozen
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    idx = list(range(4))
+    fb = FeatureBuilder(ds.bindings)
+    keep = ds.bindings.groups_for_features(["type_encoder_input",
+                                            "phase_ccdc"])
+    model = frozen.load_frozen_model(ckpt, device)
+    enc_t, _, _ = frozen.make_encode_fns(model, fb)
+    enc_p = ee.make_encode_phase_dense(model, fb)
+    t0 = time.perf_counter()
+    host = ds.load_batch(idx)
+    load_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    batch = frozen.batch_to_device(host, device, keep)
+    sync()
+    put_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):                       # the first run warms up
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            zt = enc_t(batch)
+            zp, z = enc_p(batch, zt).half(), zt.half()
+        sync()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    z_h, zp_h = z.cpu(), zp.cpu()
+    d2h_s = time.perf_counter() - t0
+    root = zl.create_group(tmp / "probe_batch.zarr")
+    p = ds.patch_size
+    zt_arr = root.create_array("z_type", (ds.height, ds.width, z.shape[-1]),
+                               (p, p, z.shape[-1]), "float16",
+                               fill_value=float("nan"))
+    zp_arr = root.create_array(
+        "z_phase", (zp.shape[1], ds.height, ds.width, zp.shape[-1]),
+        (1, p, p, zp.shape[-1]), "float16", fill_value=float("nan"))
+    t0 = time.perf_counter()
+    ee._drain((idx, z_h, zp_h), ds, zt_arr, zp_arr)
+    write_s = time.perf_counter() - t0
+    mb = (z_h.numel() + zp_h.numel()) * 2 / 1e6
+    return {"load_batch_s": load_s, "device_put_s": put_s,
+            "device_ms": 1e3 * sorted(times[1:])[0],
+            "d2h_s": d2h_s, "write_s": write_s, "float16_mb": mb,
+            "write_mb_per_s": mb / write_s,
+            "compressor": zt_arr.compressor["id"]}
+
+
+def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 15: the four eval CLIs as a user runs them on the card, on
+    phase 14's 1536 x 1536 cube and the last checkpoint it trained (v1:
+    z_type 48, z_phase 8, bf16 smoothing). (a) ``export_embeddings`` with
+    ``--phase`` over all 36 patches of 256: float16 ``z_type`` and
+    ``z_phase`` finite inside the AOI, one patch within SERVE_REL_BOUND of
+    the model run with K1's plain version, K1 launched on every batch; (b)
+    ``embed_locations`` on EVAL_POINTS points (EVAL_POINTS_OUTSIDE of them
+    off the cube) at patches of 256: every column family, ``valid: 0``
+    off the cube, ``z_type_*`` equal to (a)'s export at those pixels within
+    a float16 rounding (the export stores float16); (c) ``train_probe`` for
+    EVAL_PROBE_EPOCHS epochs on ``infonce_type_spectral`` (patches of 128,
+    B 4): history rows, a finite val R^2, both npz files; (d)
+    ``phase_probe`` with ``--design full``: finite train and val metrics,
+    W of [8 + 48 + EVAL_PCA_K + 1, C]. -> seconds, K1's launches per tool
+    and the export's rate and bytes. The widths are read from the
+    checkpoint; another ``device`` runs the same checks but K1's counts."""
+    import csv
+
+    import numpy as np
+
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data import zarrlite as zl
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.eval import (embed_locations, export_embeddings,
+                                       phase_probe, train_probe)
+    from forest_tpu_torch.training.checkpointing import load_state_raw
+
+    ckpt = tmp / "runs" / "frl_v1" / "checkpoints" / "encoder_last.msgpack"
+    bpath = tmp / "bindings.yaml"
+    model = load_state_raw(ckpt)[1]["model_config"]["model"]
+    zt_dim, zp_dim = model["z_type_dim"], model["z_phase_dim"]
+    common = ["--checkpoint", str(ckpt), "--bindings", str(bpath)]
+    if device != "cuda":
+        common += ["--device", device]
+    on_card = device == "cuda"
+    res, problems = {}, []
+
+    # (a) the dense export
+    out = tmp / "embeddings.zarr"
+    _, sec, k1 = _timed(export_embeddings.main,
+                        common + ["--out", str(out), "--phase"])
+    ds = ForestDatasetV2(parse_bindings(str(bpath)), split=None,
+                         patch_size=256)
+    n_patches = len(ds.patches)
+    n_batches = -(-n_patches // 4)
+    nbytes = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    emb = zl.open_zarr(out)
+    zt, zp = emb["z_type"], emb["z_phase"]
+    shapes = {"z_type": list(zt.shape), "z_phase": list(zp.shape)}
+    if shapes != {"z_type": [CLI_CUBE_HW, CLI_CUBE_HW, zt_dim],
+                  "z_phase": [T_STEPS, CLI_CUBE_HW, CLI_CUBE_HW, zp_dim]} or \
+            zt.dtype != np.float16 or zp.dtype != np.float16:
+        problems.append(f"export: {shapes}, {zt.dtype}, {zp.dtype}")
+    zt_all = np.asarray(zt)
+    aoi = np.asarray(zl.open_zarr(tmp / "cube.zarr")["aoi"]) > 0
+    zp_finite = all(bool(np.isfinite(np.asarray(zp[t_])[aoi]).all())
+                    for t_ in range(T_STEPS))
+    if not (np.isfinite(zt_all[aoi]).all() and zp_finite):
+        problems.append("export: non-finite embeddings inside the AOI")
+    if on_card and k1 < n_batches:
+        problems.append(f"export: {n_batches} batches launched K1 {k1}")
+    j = n_patches // 2
+    win = ds.patches[j]
+    _, (plain_zt, plain_zp) = kernel_and_plain(ckpt, bpath, ds.get_patch(j),
+                                               device)
+    rel = {}
+    for name, got, ref in (
+            ("z_type", zt_all[win.row_slice, win.col_slice], plain_zt),
+            ("z_phase", np.asarray(zp[:, win.row_slice, win.col_slice]),
+             plain_zp)):
+        rel[name] = float(np.abs(got.astype(np.float32) - ref).max()
+                          / max(np.abs(ref).max(), 1e-12))
+        if not rel[name] <= SERVE_REL_BOUND:
+            problems.append(f"export {name}: {rel[name]} from the plain "
+                            f"model > {SERVE_REL_BOUND}")
+    res["export"] = {"seconds": sec, "k1_launches": k1, "batches": n_batches,
+                     "patches": n_patches,
+                     "patches_per_s": n_patches / sec,
+                     "mb_written": nbytes / 1e6,
+                     "rel_err_vs_plain": rel,
+                     "one_batch": export_batch_probe(tmp, ckpt, bpath, ds,
+                                                     device)}
+
+    # (b) points, some off the cube
+    rng = np.random.default_rng(SEED)
+    n_in = EVAL_POINTS - EVAL_POINTS_OUTSIDE
+    pts = [(int(r), int(c)) for r, c in
+           rng.integers(0, CLI_CUBE_HW, (n_in, 2))]
+    pts += [(CLI_CUBE_HW + 10 * i, i) for i in range(EVAL_POINTS_OUTSIDE)]
+    years = [int(y) for y in rng.integers(2008, 2027, EVAL_POINTS)]
+    locs = tmp / "points.csv"
+    with open(locs, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["row", "col", "year"])
+        w.writerows([r, c, y] for (r, c), y in zip(pts, years))
+    rows, sec, k1 = _timed(
+        embed_locations.main,
+        common + ["--locations", str(locs), "--output",
+                  str(tmp / "points_emb.csv"), "--patch-size", "256",
+                  "--evt-source", "static_categorical.evt"])
+    ok = [r for r in rows if r.get("valid")]
+    families = ("pixel_row", "pixel_col", "split", "ysfc", "evt",
+                "x_type_0", "x_phase_0", f"z_type_{zt_dim - 1}",
+                f"z_phase_{zp_dim - 1}", f"g_type_{zt_dim - 1}")
+    missing = [k for k in families if k not in ok[0]] if ok else families
+    if len(ok) != n_in or missing or any(r.get("valid") != 0
+                                         for r in rows[n_in:]):
+        problems.append(f"embed: {len(ok)} of {n_in} points, missing "
+                        f"{missing}")
+    err = 0.0
+    for r in ok:
+        z = np.asarray([r[f"z_type_{d}"] for d in range(zt_dim)])
+        ref = zt_all[r["pixel_row"], r["pixel_col"]].astype(np.float64)
+        err = max(err, float((np.abs(z - ref)
+                              / (F16_REL * np.abs(ref) + 1e-5)).max()))
+    if not err <= 1.0:
+        problems.append(f"embed: z_type off the export by {err} float16 "
+                        "roundings")
+    touched = len({(r["pixel_row"] // 256, r["pixel_col"] // 256)
+                   for r in ok})
+    if on_card and k1 < touched:
+        problems.append(f"embed: {touched} patches launched K1 {k1}")
+    res["embed"] = {"seconds": sec, "k1_launches": k1, "points": len(rows),
+                    "valid": len(ok), "patches": touched,
+                    "z_type_vs_export_in_f16_roundings": err}
+
+    # (c) the SGD probe
+    pdir = tmp / "probe"
+    probe, sec, k1 = _timed(
+        train_probe.main,
+        common + ["--target-feature", "infonce_type_spectral", "--epochs",
+                  str(EVAL_PROBE_EPOCHS), "--output-dir", str(pdir)])
+    hist = probe["history"]
+    if len(hist) != EVAL_PROBE_EPOCHS or not all(
+            np.isfinite(h["val_r2"]) for h in hist) or not all(
+            (pdir / f).is_file() for f in ("probe_best.npz",
+                                           "probe_final.npz",
+                                           "probe_history.json")):
+        problems.append(f"train_probe: {hist}")
+    if on_card and k1 <= 0:
+        problems.append("train_probe never launched K1")
+    res["train_probe"] = {"seconds": sec, "k1_launches": k1,
+                          "val_r2": [h["val_r2"] for h in hist],
+                          "train_mse": [h["train_mse"] for h in hist]}
+
+    # (d) the phase probe, full design
+    pp, sec, k1 = _timed(
+        phase_probe.main,
+        common + ["--design", "full", "--output",
+                  str(tmp / "phase_probe.json")])
+    w_shape = list(pp["weights"].shape)
+    n_ch = w_shape[1] if len(w_shape) == 2 else -1
+    r2 = {s_: pp["metrics"][s_]["r2_total"] for s_ in ("train", "val")}
+    if w_shape != [zp_dim + zt_dim + EVAL_PCA_K + 1, n_ch] or not all(
+            np.isfinite(pp["metrics"][s_][k])
+            for s_ in ("train", "val")
+            for k in ("r2_total", "mse_total", "r2_total_original")):
+        problems.append(f"phase_probe: W {w_shape}, R^2 {r2}")
+    if on_card and k1 <= 0:
+        problems.append("phase_probe never launched K1")
+    res["phase_probe"] = {"seconds": sec, "k1_launches": k1,
+                          "weights": w_shape,
+                          "target": pp["target_feature"], "r2_total": r2,
+                          "n_observations": {
+                              s_: pp["metrics"][s_]["n_observations"]
+                              for s_ in ("train", "val")}}
+    if problems:
+        raise AssertionError(f"eval tools: {problems}")
+    return res
 
 
 def build_vqvae_step(zarr, run_dir, device: str = "cuda"):
@@ -2184,8 +2467,12 @@ def main() -> int:
     log(f"vqvae training: {json.dumps(vqvae)}")
     fixture = check_fixture()                                 # phase 13
     torch.cuda.empty_cache()
-    cli = cli_train_and_check()                               # phase 14
-    log(f"training CLI: {json.dumps(cli)}")
+    with tempfile.TemporaryDirectory() as d:
+        cli = cli_train_and_check(Path(d))                    # phase 14
+        log(f"training CLI: {json.dumps(cli)}")
+        torch.cuda.empty_cache()
+        evals = eval_tools_and_check(Path(d))                 # phase 15
+    log(f"eval tools: {json.dumps(evals)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -2256,13 +2543,34 @@ def main() -> int:
         f"and copied to the card in {one['device_put_s']:.3f} s, the CLI's "
         f"step on it resident {one['resident_step_ms']:.1f} ms (median of 3, "
         f"diagnostics on) ({card})")
+    ex = evals["export"]
+    log(f"eval tools on the {CLI_CUBE_HW}^2 cube: export_embeddings --phase "
+        f"{ex['seconds']:.2f} s for {ex['patches']} patches of 256 "
+        f"({ex['patches_per_s']:.2f} patches/s, {ex['mb_written']:.1f} MB "
+        f"written, K1 {ex['k1_launches']} launches in {ex['batches']} "
+        f"batches); one batch of 4: decoded in "
+        f"{ex['one_batch']['load_batch_s']:.3f} s, copied in "
+        f"{ex['one_batch']['device_put_s']:.3f} s, type + dense phase "
+        f"{ex['one_batch']['device_ms']:.1f} ms on the card, float16 back "
+        f"in {ex['one_batch']['d2h_s']:.3f} s, "
+        f"{ex['one_batch']['float16_mb']:.1f} MB written "
+        f"({ex['one_batch']['compressor']}) in "
+        f"{ex['one_batch']['write_s']:.3f} s; embed_locations "
+        f"{evals['embed']['seconds']:.2f} s for "
+        f"{evals['embed']['points']} points (K1 "
+        f"{evals['embed']['k1_launches']}); train_probe "
+        f"{evals['train_probe']['seconds']:.2f} s for {EVAL_PROBE_EPOCHS} "
+        f"epochs (K1 {evals['train_probe']['k1_launches']}); phase_probe "
+        f"{evals['phase_probe']['seconds']:.2f} s (K1 "
+        f"{evals['phase_probe']['k1_launches']}) ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [
         kernel_entry("bank_mix_fwd", bf16,
                      {"serving": serve["launches"],
                       "training": steps["bank_mix_fwd"],
-                      "training_cli": cli["launches"]["bank_mix_fwd"]},
+                      "training_cli": cli["launches"]["bank_mix_fwd"],
+                      "eval": sum(evals[k]["k1_launches"] for k in evals)},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],

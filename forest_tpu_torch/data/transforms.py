@@ -1,19 +1,31 @@
-"""Pre-normalisation transforms on tensors.
+"""Pre-normalisation transforms, with their inverses.
 
-Port of ``forest_tpu/data/transforms.py``'s ``apply_transform``: the same
-named transforms (none, identity, log1p, log10, sqrt, cbrt, neg, and the
-parameterised ``log`` = log(x + epsilon)) and the same spec parsing.
-Out-of-domain inputs become NaN, to be masked downstream.
+Port of ``forest_tpu/data/transforms.py``: the same named transforms (none,
+identity, log1p, log10, sqrt, cbrt, neg, and the parameterised ``log`` =
+log(x + epsilon)) and the same spec parsing. :func:`get_transform` gives a
+:class:`Transform` whose ``forward``, ``inverse`` and ``domain_check`` take
+a tensor or a numpy array and answer in kind (the phase probe inverts
+float64 numpy columns as well as tensors on the device).
+:func:`apply_transform` makes out-of-domain inputs NaN, to be masked
+downstream.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 TransformSpec = Union[str, Dict[str, Any], None]
 
 LOG_DEFAULT_EPSILON = 1.0
+
+
+class Transform(NamedTuple):
+    name: str
+    forward: Callable
+    inverse: Callable
+    domain_check: Callable  # x -> bool array (valid input domain)
 
 
 def parse_transform_spec(spec: TransformSpec
@@ -34,28 +46,43 @@ def parse_transform_spec(spec: TransformSpec
                     f"{type(spec).__name__}")
 
 
-# name -> (forward, domain check)
-_REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
-    "none": (lambda x: x, torch.isfinite),
-    "identity": (lambda x: x, torch.isfinite),
-    "log1p": (torch.log1p, lambda x: torch.isfinite(x) & (x > -1)),
-    "log10": (torch.log10, lambda x: torch.isfinite(x) & (x > 0)),
-    "sqrt": (torch.sqrt, lambda x: torch.isfinite(x) & (x >= 0)),
-    # torch has no cbrt: sign(x) * |x|^(1/3), finite everywhere
-    "cbrt": (lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
-             torch.isfinite),
-    "neg": (torch.neg, torch.isfinite),
-}
+def _xp(x):
+    return torch if isinstance(x, torch.Tensor) else np
 
 
-def _get(spec: TransformSpec) -> Tuple[Callable, Callable]:
+def _cbrt(x):
+    if isinstance(x, torch.Tensor):   # torch has no cbrt
+        return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    return np.cbrt(x)
+
+
+def _finite(x):
+    return _xp(x).isfinite(x)
+
+
+_REGISTRY: Dict[str, Transform] = {t.name: t for t in (
+    Transform("none", lambda x: x, lambda x: x, _finite),
+    Transform("identity", lambda x: x, lambda x: x, _finite),
+    Transform("log1p", lambda x: _xp(x).log1p(x), lambda x: _xp(x).expm1(x),
+              lambda x: _finite(x) & (x > -1)),
+    Transform("log10", lambda x: _xp(x).log10(x), lambda x: 10.0 ** x,
+              lambda x: _finite(x) & (x > 0)),
+    Transform("sqrt", lambda x: _xp(x).sqrt(x), lambda x: x * x,
+              lambda x: _finite(x) & (x >= 0)),
+    Transform("cbrt", _cbrt, lambda x: x * x * x, _finite),
+    Transform("neg", lambda x: -x, lambda x: -x, _finite),
+)}
+
+
+def get_transform(spec: TransformSpec) -> Transform:
     name, params = parse_transform_spec(spec)
     if name is None:
         return _REGISTRY["none"]
     if name == "log":
         eps = float(params.get("epsilon", LOG_DEFAULT_EPSILON))
-        return (lambda x: torch.log(x + eps),
-                lambda x: torch.isfinite(x) & (x > -eps))
+        return Transform("log", lambda x: _xp(x).log(x + eps),
+                         lambda x: _xp(x).exp(x) - eps,
+                         lambda x: _finite(x) & (x > -eps))
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown transform {name!r}; have {sorted(_REGISTRY) + ['log']}")
@@ -67,11 +94,11 @@ def _get(spec: TransformSpec) -> Tuple[Callable, Callable]:
 
 def apply_transform(spec: TransformSpec, x: torch.Tensor) -> torch.Tensor:
     """Apply the transform; out-of-domain inputs become NaN."""
-    forward, domain = _get(spec)
-    ok = domain(x)
+    t = get_transform(spec)
+    ok = t.domain_check(x)
     safe = torch.where(ok, x, torch.ones_like(x))
-    return torch.where(ok, forward(safe), torch.full_like(x, float("nan")))
+    return torch.where(ok, t.forward(safe), torch.full_like(x, float("nan")))
 
 
-__all__ = ["apply_transform", "parse_transform_spec", "TransformSpec",
-           "LOG_DEFAULT_EPSILON"]
+__all__ = ["Transform", "TransformSpec", "get_transform", "apply_transform",
+           "parse_transform_spec", "LOG_DEFAULT_EPSILON"]

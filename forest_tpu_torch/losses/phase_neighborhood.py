@@ -221,7 +221,7 @@ def compute_phase_spread_ranking(
 
 
 @contextlib.contextmanager
-def _full_float32():
+def full_float32():
     """Float32 matrix products in full float32 (no TF32) on a card."""
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -261,7 +261,7 @@ def type_local_spectral_demean(z_type: torch.Tensor, spec: torch.Tensor,
     mu = (z * v).sum(0, keepdim=True) / cnt
     zc = (z - mu) * v                                         # [N, D]
     k = min(pca_dim, d)
-    with _full_float32():
+    with full_float32():
         gram = zc.t() @ zc                                    # [D, D]
         if gram.is_cuda:
             evals, evecs = (

@@ -8,10 +8,10 @@ Port of ``forest_tpu/models/representation.py`` (checkpoint schema VERSION
 - phase pathway: TCNEncoder (pooling 'none') -> Dense bottleneck
   ``phase_head`` -> FiLM(gamma, beta from z_type), either at sampled pixels
   (``forward_phase_at_locations``) or densely (``forward_phase``,
-  [B, T, H, W, C_phase] -> [B, T, H, W, z_phase_dim]).
+  [B, T, H, W, C_phase] -> [B, T, H, W, z_phase_dim]);
+- the optional SimCLR projection head on z_type (``project_type``, the
+  identity when the config disables it, as the shipped v1 config does).
 
-The optional projection head is not ported: the shipped v1 config disables
-it and serving never calls it, so a config that enables it is refused.
 Module names follow the flax tree, so ``utils.flax_bridge`` carries
 parameters over one to one.
 """
@@ -25,6 +25,7 @@ from torch import nn
 from forest_tpu_torch.models.conditioning import FiLMLayer
 from forest_tpu_torch.models.conv2d_encoder import (Conv2DEncoder,
                                                     EncoderDraws)
+from forest_tpu_torch.models.heads import MLPProjectionHead
 from forest_tpu_torch.models.spatial import EdgeAwareSmoothingConv2D
 from forest_tpu_torch.models.tcn import TCNEncoder
 
@@ -48,7 +49,10 @@ class RepresentationModel(nn.Module):
                  phase_tcn_kernel_size: int = 3,
                  phase_tcn_dilations: Sequence[int] = (1, 2, 4),
                  phase_tcn_num_groups: int = 8,
-                 phase_tcn_dropout: float = 0.0):
+                 phase_tcn_dropout: float = 0.0,
+                 type_proj_hidden_dim: Optional[int] = None,
+                 type_proj_output_dim: Optional[int] = None,
+                 type_proj_l2_normalize: bool = True):
         super().__init__()
         # constructor arguments, read back by model_config_dict
         self.hparams = {k: v for k, v in locals().items()
@@ -80,6 +84,11 @@ class RepresentationModel(nn.Module):
             dropout_rate=phase_tcn_dropout)
         self.phase_head = nn.Linear(phase_tcn_channels[-1], z_phase_dim)
         self.phase_film = FiLMLayer(z_type_dim, z_phase_dim)
+        self.type_projection = (
+            MLPProjectionHead(z_type_dim, type_proj_hidden_dim,
+                              type_proj_output_dim, type_proj_l2_normalize)
+            if type_proj_hidden_dim is not None
+            and type_proj_output_dim is not None else None)
 
     # --- type pathway ------------------------------------------------------
 
@@ -97,6 +106,12 @@ class RepresentationModel(nn.Module):
                          generator=generator)
         return self.spatial_conv(h, min_gate=min_gate,
                                  return_gate=return_gate)
+
+    def project_type(self, z_type: torch.Tensor) -> torch.Tensor:
+        """SimCLR projection of z_type [..., zt]; identity when disabled."""
+        if self.type_projection is None:
+            return z_type
+        return self.type_projection(z_type)
 
     # --- phase pathway -----------------------------------------------------
 
@@ -141,7 +156,8 @@ def init_parameters(model: RepresentationModel,
                     generator: torch.Generator) -> None:
     """Random weights as flax initialises them: conv / dense kernels
     N(0, 1/fan_in) (LeCun normal, untruncated), zero biases, unit GroupNorm
-    scales; FiLM output layers N(0, 0.01^2) with gamma bias 1, beta bias 0.
+    and LayerNorm scales; FiLM output layers N(0, 0.01^2) with gamma bias
+    1, beta bias 0.
     ``generator`` is a CPU generator, so a seed gives the same weights on
     every device."""
     film_out = {model.phase_film.gamma_1: 1.0, model.phase_film.beta_1: 0.0}
@@ -152,7 +168,7 @@ def init_parameters(model: RepresentationModel,
             w.copy_(torch.randn(w.shape, generator=generator) * std)
             if mod.bias is not None:
                 mod.bias.fill_(film_out.get(mod, 0.0))
-        elif isinstance(mod, nn.GroupNorm):
+        elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
 
@@ -173,8 +189,7 @@ def from_config(cfg: Dict[str, Any], type_in_channels: int,
     s = m.get("spatial_conv", {})
     p = m.get("phase_tcn", {})
     proj = m.get("type_projection", {}) or {}
-    if proj.get("enabled", False):
-        raise NotImplementedError("the type projection head is not ported")
+    on = proj.get("enabled", False)
     return RepresentationModel(
         type_in_channels=type_in_channels,
         phase_in_channels=phase_in_channels,
@@ -195,6 +210,9 @@ def from_config(cfg: Dict[str, Any], type_in_channels: int,
         phase_tcn_dilations=tuple(p.get("dilations", (1, 2, 4))),
         phase_tcn_num_groups=p.get("num_groups", 8),
         phase_tcn_dropout=p.get("dropout_rate", 0.0),
+        type_proj_hidden_dim=proj.get("hidden_dim") if on else None,
+        type_proj_output_dim=proj.get("output_dim") if on else None,
+        type_proj_l2_normalize=proj.get("l2_normalize", True),
     )
 
 
@@ -229,10 +247,10 @@ def model_config_dict(model: RepresentationModel) -> Dict[str, Any]:
                 "num_groups": hp["phase_tcn_num_groups"],
             },
             "type_projection": {
-                "enabled": False,
-                "hidden_dim": None,
-                "output_dim": None,
-                "l2_normalize": True,
+                "enabled": model.type_projection is not None,
+                "hidden_dim": hp["type_proj_hidden_dim"],
+                "output_dim": hp["type_proj_output_dim"],
+                "l2_normalize": hp["type_proj_l2_normalize"],
             },
         },
     }

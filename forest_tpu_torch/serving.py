@@ -159,7 +159,7 @@ class EncoderService:
         self.bindings = parse_bindings(str(bindings))
         self.fb = FeatureBuilder(self.bindings)
         self.model = frozen.load_frozen_model(checkpoint, self.device)
-        encode_type = frozen.make_encode_fns(self.model, self.fb)
+        encode_type, _, _ = frozen.make_encode_fns(self.model, self.fb)
         model, fb = self.model, self.fb
 
         def to_device(batch: Dict[str, np.ndarray]):

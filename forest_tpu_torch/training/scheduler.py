@@ -11,7 +11,11 @@ optax schedules it is built from written out:
   second-moment state is cold for the parameters that become active then).
   The original project instead restarts a fresh cosine at that step; this
   port keeps the JAX package's behaviour, a known divergence;
-- :func:`resume_cosine_lr`: a fresh cosine over the remaining steps.
+- :func:`resume_cosine_lr`: a fresh cosine over the remaining steps;
+- :func:`warmup_cosine_decay_schedule`: optax's function of that name, term
+  for term (a linear ramp ``(init - peak) * (1 - c / warmup) + peak``, then
+  a cosine over ``decay_steps - warmup_steps``), which the SGD probe of
+  ``eval/train_probe.py`` trains with.
 """
 from __future__ import annotations
 
@@ -70,4 +74,27 @@ def resume_cosine_lr(lr: float, remaining_steps: int,
     return cosine_lr(lr, remaining_steps, min_lr, warmup_steps=0)
 
 
-__all__ = ["cosine_lr", "two_phase_cosine_lr", "resume_cosine_lr"]
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Schedule:
+    """optax.warmup_cosine_decay_schedule (exponent 1): ``linear_schedule``
+    from ``init_value`` to ``peak_value`` over ``warmup_steps``, joined at
+    that step to ``cosine_decay_schedule(peak_value, decay_steps -
+    warmup_steps, end_value / peak_value)``."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("the cosine needs positive decay steps, got "
+                         f"{decay_steps} - {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine = _cosine_decay(peak_value, decay_steps - warmup_steps, alpha)
+
+    def schedule(count):
+        if count >= warmup_steps:
+            return cosine(count - warmup_steps)
+        frac = 1.0 - min(max(float(count), 0.0), warmup_steps) / warmup_steps
+        return (init_value - peak_value) * frac + peak_value
+
+    return schedule
+
+
+__all__ = ["cosine_lr", "two_phase_cosine_lr", "resume_cosine_lr",
+           "warmup_cosine_decay_schedule"]

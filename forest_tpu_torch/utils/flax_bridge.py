@@ -7,7 +7,8 @@ path ``a/b/leaf`` becomes the state_dict key ``a.b.<torch leaf>``:
 - Conv kernel [kh, kw, I, O] -> Conv2d weight [O, I, kh, kw];
 - Conv1d kernel [k, I, O] -> Conv1d weight [O, I, k];
 - Dense kernel [I, O] -> Linear weight [O, I];
-- GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``; biases as they are;
+- GroupNorm and LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
+  (the projection head's ``type_projection/norm``); biases as they are;
 - an ``nn.Embed`` table ``embedding`` and the VQ-VAE's bare parameters
   (``time_emb``, ``time_query``, ``codebook``) keep name and layout.
 
@@ -71,7 +72,7 @@ def params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]
                    ) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: a 1-D ``weight`` is a GroupNorm
-    ``scale``, any other ``weight`` a kernel."""
+    or LayerNorm ``scale``, any other ``weight`` a kernel."""
     tree: Dict[str, Any] = {}
     for key, t in state_dict.items():
         arr = t.detach().to("cpu", torch.float32).numpy()

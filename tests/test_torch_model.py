@@ -364,10 +364,22 @@ def test_phase_dropout_config_round_trips():
 
 
 def test_projection_head_is_refused():
-    cfg = {"version": "4", "model": {"type_projection": {
+    """A config with ``type_projection.enabled`` is not refused: it builds
+    the SimCLR head, whose ``project_type`` matches flax's (rtol / atol
+    1e-5), and the config round-trips. Without the head ``project_type`` is
+    the identity."""
+    cfg = {**TINY_CFG, "model": {**TINY_CFG["model"], "type_projection": {
         "enabled": True, "hidden_dim": 8, "output_dim": 4}}}
-    with pytest.raises(NotImplementedError):
-        trep.from_config(cfg, 4, 3)
+    jm, p, tm = _pair(cfg, seed=41)
+    z = rand(42, 11, 6)
+    ref = jm.apply({"params": p}, jnp.asarray(z), method=jm.project_type)
+    with torch.no_grad():
+        got = tm.project_type(t(z))
+    assert got.shape == (11, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+    assert trep.model_config_dict(tm) == jrep.model_config_dict(jm)
+    plain = trep.from_config(TINY_CFG, 4, 3)
+    assert plain.project_type(t(z)).numpy().tobytes() == z.tobytes()
 
 
 def test_init_parameters_is_seeded():

@@ -58,6 +58,13 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/vqvae_dataset.py",
                  "forest_tpu_torch/data/loader.py",
                  "forest_tpu_torch/eval/export_codebook.py",
+                 "forest_tpu_torch/eval/frozen.py",
+                 "forest_tpu_torch/eval/linear_probe.py",
+                 "forest_tpu_torch/eval/train_probe.py",
+                 "forest_tpu_torch/eval/phase_probe.py",
+                 "forest_tpu_torch/eval/embed_locations.py",
+                 "forest_tpu_torch/eval/export_embeddings.py",
+                 "forest_tpu_torch/models/heads.py",
                  "forest_tpu_torch/losses/phase_pairs.py",
                  "forest_tpu_torch/losses/soft_neighborhood.py",
                  "forest_tpu_torch/losses/phase_neighborhood.py",

@@ -423,8 +423,7 @@ def test_init_from_loads_params_with_a_fresh_optimizer(cube, tmp_path):
     ({"env": ("FOREST_TPU_COORDINATOR", "localhost:1234")},
      "multi-process"),
     ({"env": ("WORLD_SIZE", "4")}, "multi-process"),
-    ({"data_parallel_cards": 2}, "queue 6"),
-    ({"projection": True}, "projection")])
+    ({"data_parallel_cards": 2}, "queue 6")])
 def test_unported_options_are_refused(cube, monkeypatch, tmp_path, setting,
                                       match):
     root, paths, _ = cube
@@ -437,14 +436,37 @@ def test_unported_options_are_refused(cube, monkeypatch, tmp_path, setting,
         over["hardware"] = {"data_parallel": True}
         monkeypatch.setattr(torch.cuda, "device_count",
                             lambda: setting["data_parallel_cards"])
-    if "projection" in setting:
-        model_cfg["model"]["type_projection"] = {"enabled": True}
     cfg = ttc.parse_training_config(training_dict(root, "x", "type", **over))
     with pytest.raises(NotImplementedError, match=match):
         ttr.train(cfg, str(paths["plain"]), model_cfg, max_batches=1,
                   device="cpu")
-    if "projection" not in setting:   # refused before anything is written
-        assert not (tmp_path / "runs").exists()
+    assert not (tmp_path / "runs").exists()   # refused before any write
+
+
+def test_projection_head_trains_and_crosses_to_jax(cube, tmp_path):
+    """A model config with ``type_projection`` enabled trains through the
+    CLI (the head gets no gradient, as in the JAX step), and its checkpoint
+    loads in the JAX package's ``load_frozen_model``: ``project_type`` of
+    both within rtol / atol 1e-5."""
+    from forest_tpu.eval import frozen as jfrozen
+    root, paths, _ = cube
+    model_cfg = copy.deepcopy(MODEL_CFG)
+    model_cfg["model"]["type_projection"] = {
+        "enabled": True, "hidden_dim": 10, "output_dim": 5}
+    cfg = ttc.parse_training_config(training_dict(
+        root, "proj", "type", run={"experiment_name": "proj",
+                                   "run_root": str(tmp_path / "runs")}))
+    out = ttr.train(cfg, str(paths["plain"]), model_cfg, max_batches=1,
+                    device="cpu")
+    jm, jp = jfrozen.load_frozen_model(
+        cfg.run.experiment_dir / cfg.run.ckpt_dir / "encoder_last.msgpack")
+    z = np.random.default_rng(3).normal(size=(7, 12)).astype(np.float32)
+    ref = jm.apply({"params": jp}, z, method=jm.project_type)
+    with torch.no_grad():
+        got = out["model"].project_type(torch.from_numpy(z))
+    assert got.shape == (7, 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_data_parallel_on_one_card_is_a_no_op(cube, monkeypatch, tmp_path):

@@ -263,3 +263,124 @@ def tiny_step_draws(rng, jsampler, cfg_xb_neg=4, encoder=None, phase=None,
                                (bsz * a, cfg_xb_neg), 0, bsz * a)
     return tstep.StepDraws(jitter, supp_u, pool_u, pick_u, ti(neg_j),
                            encoder, phase)
+
+
+# --- the eval tools' shared fixture ---------------------------------------
+
+EVAL_CFG = {"version": "4", "model": {
+    "z_type_dim": 8, "z_phase_dim": 3,
+    "type_encoder": {"channels": [16, 8], "num_groups": 4},
+    "spatial_conv": {"gate_hidden": 8},
+    "phase_tcn": {"channels": [12, 12], "dilations": [1, 2],
+                  "num_groups": 4}}}
+EVAL_CFG_PROJ = {"version": "4", "model": {
+    **EVAL_CFG["model"],
+    "type_projection": {"enabled": True, "hidden_dim": 10,
+                        "output_dim": 5}}}
+EVAL_HW, EVAL_CHUNK, EVAL_PATCH = 96, 32, 32
+# a temporal probe target whose inverse runs a transform, a robust affine
+# and the whitening
+PHASE_TARGET = {
+    "dim": ["C", "T", "H", "W"],
+    "channels": {"annual.ysfc": {"transform": "log1p", "norm": "zscore"},
+                 "annual.nbr": {"mask": "annual_mask.ccdc_ok",
+                                "norm": "robust_iqr"}},
+    "covariance": {"calculate": True, "stat_domain": "patch"}}
+
+
+def _eval_cube(root, build_cube, make_bindings):
+    """The cube, its bindings (``phase_target`` the phase loss's
+    neighbourhood target) and their stats (the port's ``StatsCalculator``
+    over every patch) in ``root`` -> the bindings' path."""
+    import yaml
+
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.stats import compute_stats_from_config
+
+    build_cube(root / "cube.zarr", height=EVAL_HW, width=EVAL_HW,
+               chunk_yx=EVAL_CHUNK)
+    raw = make_bindings(root / "cube.zarr", root / "stats.json")
+    raw["features"]["phase_target"] = PHASE_TARGET
+    raw["losses"]["phase_neighborhood"]["neighborhood_target"] = \
+        "features.phase_target"
+    bpath = root / "bindings.yaml"
+    bpath.write_text(yaml.safe_dump(raw))
+    compute_stats_from_config(parse_bindings(raw), device="cpu",
+                              patch_size=EVAL_PATCH)
+    return bpath
+
+
+def write_eval_fixture(root, seed=0):
+    """A 96 x 96 synthetic v2 cube (chunks of 32) from the JAX package's
+    builder, its bindings and stats (:func:`_eval_cube`), and two
+    checkpoints of a tiny flax RepresentationModel with seeded parameters
+    written by the JAX package's ``save_state``: without and with the type
+    projection head. -> dict of paths."""
+    import jax
+
+    from forest_tpu.data.cube_v2 import (build_synthetic_v2_cube,
+                                         synthetic_bindings)
+    from forest_tpu.models import representation as jrep
+    from forest_tpu.training.checkpointing import save_state
+
+    out = {"root": root, "bindings": _eval_cube(
+        root, build_synthetic_v2_cube, synthetic_bindings)}
+    for name, cfg in (("ckpt", EVAL_CFG), ("ckpt_proj", EVAL_CFG_PROJ)):
+        jm = jrep.from_config(cfg, 4, 3)
+        params = flax_params(lambda k: jrep.init_variables(jm, k), seed)
+        path = root / f"{name}.msgpack"
+        save_state(path, {"params": jax.device_get(params), "step": 3},
+                   {"model_config": cfg, "type_in_channels": 4,
+                    "phase_in_channels": 3})
+        out[name] = path
+    return out
+
+
+def write_port_eval_fixture(root, seed=0):
+    """:func:`write_eval_fixture` with the port's own cube builder and
+    checkpoints (``init_parameters`` from ``seed``): nothing of JAX or
+    flax, for the card's machine, which has no flax."""
+    from forest_tpu_torch.data.cube_v2 import (build_synthetic_v2_cube,
+                                               synthetic_bindings)
+    from forest_tpu_torch.models import representation as trep
+    from forest_tpu_torch.training.checkpointing import save_state
+    from forest_tpu_torch.utils.flax_bridge import params_to_flax
+
+    out = {"root": root, "bindings": _eval_cube(
+        root, build_synthetic_v2_cube, synthetic_bindings)}
+    for name, cfg in (("ckpt", EVAL_CFG), ("ckpt_proj", EVAL_CFG_PROJ)):
+        model = trep.from_config(cfg, 4, 3)
+        trep.init_parameters(model, torch.Generator().manual_seed(seed))
+        path = root / f"{name}.msgpack"
+        save_state(path, {"params": params_to_flax(model.state_dict())},
+                   {"model_config": cfg, "type_in_channels": 4,
+                    "phase_in_channels": 3})
+        out[name] = path
+    return out
+
+
+def eval_locations(path) -> int:
+    """A points CSV (row, col, year) for ``embed_locations``: 14 points
+    inside the 96 x 96 cube, with and without a year (years outside the
+    window among them), and 3 off it. -> the number of points."""
+    import csv
+    rng = np.random.default_rng(2)
+    rows = [(int(r), int(c), y) for (r, c), y in zip(
+        rng.integers(0, EVAL_HW, (14, 2)),
+        [None, 2012, 2024, 1990, 2016, None, 2010, 2030, 2019, None,
+         2015, 2011, None, 2020])]
+    rows += [(120, 5, 2015), (3, 400, None), (EVAL_HW, 0, None)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["row", "col", "year"])
+        for r, c, y in rows:
+            w.writerow([r, c, "" if y is None else y])
+    return len(rows)
+
+
+def read_csv(path):
+    """-> (column names, rows as dicts of strings)."""
+    import csv
+    with open(path) as f:
+        rd = csv.DictReader(f)
+        return rd.fieldnames, list(rd)
