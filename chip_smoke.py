@@ -143,7 +143,31 @@ Phases, each of which passes or raises (any failure exits non-zero):
     20 + 1, C]. Printed: each tool's seconds and K1's launches, the
     export's patches per second and MB written, and where one of its
     batches' time goes (decode, copy, the card's time, copy back, zarr
-    write).
+    write);
+16. the clustering and FIA tools as a user runs them, on phase 14's cube
+    and checkpoint, each with the launch counts set to 0 just before it
+    and read just after: (a) ``eval.gmm.main`` at its defaults (patches of
+    128, capacity 100,000, components 4 8 16 24 32) with ``--evt-source
+    static_categorical.evt``: a best K among them, finite BICs, a label per
+    sampled pixel, K1 launched on every batch; (b)
+    ``eval.landscape_categories.main`` at its defaults (500,000 pixels, K
+    5-50 step 5, 3 inits, silhouettes on 20,000) but a dynamic-variance
+    threshold of 0, so that every type cluster of 1,000 pixels or more gets
+    its phase sweep and the second pass runs: ``taxonomy.json`` over every
+    pixel fit and the pickles, K1 launched on every batch of both passes;
+    then one diag GMM fit at K 25 on the 500,000 pixels, timed alone; (c)
+    ``embed_locations`` on 2,000 points inside the AOI and forest, a seeded
+    synthetic target pair, a unit and an auxiliary column added, and
+    ``eval.fia.main`` with each of ``hierarchical``, ``hdbscan``,
+    ``removals`` and ``probe_table``:
+    finite tables over 2,000 plots; (d) one GMM fit, one KMeans fit and one
+    HDBSCAN run on the card against the same calls on the CPU from the same
+    host draws (the check where a kernel's plain version would stand):
+    labels equal, parameters within 1e-6 relative. Between (a) and (b),
+    the type forward on gmm's first batch (4 train patches of 128) with K1
+    and with its plain version swapped in, z_type within 2^-5 relative.
+    Printed: each tool's seconds, the pixels fit, the timed fit's
+    iterations and seconds, and K1's launches.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -163,7 +187,7 @@ device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's source, launches by main path (serving, the FRL training step,
-the FRL training CLI and, for K1, the eval tools; for the
+the FRL training CLI and, for K1, the eval and the clustering tools; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep), error, times, and its bound: the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
@@ -179,6 +203,7 @@ keeps its own copy of.
 from __future__ import annotations
 
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1922,6 +1947,352 @@ def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     return res
 
 
+# phase 16: the clustering and FIA tools on phase 14's cube and checkpoint
+FIA_POINTS = 2000
+GMM_TIMED_K = 25                # the landscape sweep's middle K
+# every type cluster of at least --min-cluster-pixels is dynamic, so the
+# phase sweeps and the second pass run: the trained v1 model's 90th
+# percentile of temporal variance stays below the default 0.25 on the
+# synthetic cube (no dynamic cluster, one pass, on an H100)
+DYNAMIC_VAR_THRESHOLD = "0"
+CARD_VS_CPU_ROWS = 20_000
+CARD_VS_CPU_REL = 1e-6          # float64 fits from the same host draws
+
+
+def fia_table(tmp: Path, rows, zt_dim: int, hw: int) -> Path:
+    """The points' embeddings with a seeded synthetic target pair (BALIVE,
+    a linear score of z_type plus noise; REMV, zero-inflated removals on the
+    same score), a survey-unit column (the quadrant of the cube of ``hw``
+    pixels a side) and an auxiliary covariate (TCC, the score plus more
+    noise). -> the CSV."""
+    import csv
+
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    ok = [r for r in rows if r.get("valid")]
+    zt = np.asarray([[r[f"z_type_{d}"] for d in range(zt_dim)] for r in ok])
+    score = ((zt - zt.mean(0)) / np.maximum(zt.std(0), 1e-12)
+             @ rng.normal(size=zt_dim)) / np.sqrt(zt_dim)
+    n = len(ok)
+    extra = {"BALIVE": 20 + 8 * score + rng.normal(0, 2, n),
+             "REMV": np.where(rng.random(n) < 0.6, 0.0,
+                              np.exp(score + rng.normal(0, 0.3, n))),
+             "TCC": 50 + 10 * score + rng.normal(0, 10, n)}
+    half = hw // 2
+    path = tmp / "fia_plots.csv"
+    keys = list(ok[0]) + list(extra) + ["UNITCD"]
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=keys)
+        w.writeheader()
+        for i, r in enumerate(ok):
+            w.writerow({**r, **{k: float(v[i]) for k, v in extra.items()},
+                        "UNITCD": 2 * (r["pixel_row"] // half)
+                        + r["pixel_col"] // half})
+    return path
+
+
+def _printed(fn, argv):
+    """A CLI's ``main`` with its standard output captured -> (the lines it
+    printed, seconds, K1's launches); the lines go on to standard error."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, sec, k1 = _timed(fn, argv)
+    finally:
+        sys.stderr.write(buf.getvalue())
+    return buf.getvalue().splitlines(), sec, k1
+
+
+def clustering_k1_vs_plain(ckpt: Path, bpath: Path,
+                           device: str = "cuda") -> dict:
+    """The clustering CLIs' type forward (``frozen.make_encode_fns``'
+    ``encode_type``, as ``eval.gmm`` runs it) on their first batch, 4 train
+    patches of 128, with K1 and with its plain version swapped in: z_type
+    within SERVE_REL_BOUND relative, K1 launched. -> the shape and type K1
+    was given, its launches and the relative error."""
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.eval import frozen
+    from forest_tpu_torch.models import spatial
+    from forest_tpu_torch.ops import smoothing as sm
+
+    bindings = parse_bindings(str(bpath))
+    fb = FeatureBuilder(bindings)
+    ds = ForestDatasetV2(bindings, split="train", patch_size=128,
+                         split_block_size=(4, 4))
+    encode_type = frozen.make_encode_fns(
+        frozen.load_frozen_model(ckpt, device), fb)[0]
+    batch = frozen.batch_to_device(ds.load_batch(list(range(4))), device)
+    seen = []
+
+    def spy(x, *a, **k):
+        seen.append([list(x.shape), str(x.dtype).replace("torch.", "")])
+        return sm.bank_mix(x, *a, **k)
+
+    spatial.bank_mix = spy
+    try:
+        reset_launches()
+        kernel = encode_type(batch).float()
+        launches = read_launches()["bank_mix_fwd"]
+        spatial.bank_mix = sm.bank_mix_reference
+        plain = encode_type(batch).float()
+    finally:
+        spatial.bank_mix = sm.bank_mix
+    rel = float((kernel - plain).abs().max()
+                / plain.abs().max().clamp_min(1e-12))
+    res = {"k1_input": seen[0], "k1_calls": len(seen),
+           "launches": launches, "rel_err_vs_plain": rel}
+    if not rel <= SERVE_REL_BOUND or (device == "cuda" and not launches):
+        raise AssertionError(f"clustering K1 vs plain (bound "
+                             f"{SERVE_REL_BOUND}): {res}")
+    return res
+
+
+def landscape_reservoir(ckpt: Path, bpath: Path, device: str = "cuda",
+                        capacity: int = 500_000, seed: int = 42):
+    """The landscape CLI's first pass at its defaults, as it runs it ->
+    (the z_type of the reservoir it fits, the pixels it saw)."""
+    import numpy as np
+
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.data.samplers import ReservoirSampler
+    from forest_tpu_torch.eval import frozen
+    from forest_tpu_torch.eval import landscape_categories as lc
+
+    bindings = parse_bindings(str(bpath))
+    fb = FeatureBuilder(bindings)
+    ds = ForestDatasetV2(bindings, split="train", patch_size=128,
+                         split_block_size=(4, 4), min_aoi=0.3)
+    model = frozen.load_frozen_model(ckpt, device)
+    phase_feature = getattr(model, "phase_feature", "phase_ccdc")
+    keep = set(bindings.groups_for_features(
+        ["type_encoder_input", phase_feature, "ysfc"])) | {"static_mask"}
+    rs, n_seen = ReservoirSampler(capacity, seed=seed), 0
+    for b in lc.stream_pixels(lc.make_extract_fn(model, fb), ds, 4, None,
+                              keep, device):
+        rs.add(np.concatenate([b["z_type"], b["summary"],
+                               b["tvar"][:, None]], axis=1))
+        n_seen += len(b["z_type"])
+    return rs.sample()[:, :model.z_type_dim], n_seen
+
+
+def cluster_card_vs_cpu(z_type, fia_z, device: str = "cuda") -> dict:
+    """One GMM fit (diag, K 16, on CARD_VS_CPU_ROWS rows of the landscape
+    reservoir's z_type), one KMeans fit (K 5, 10 inits) and one HDBSCAN run
+    (min 20) on the FIA points' standardised z_type, on the card and on the
+    CPU from the same host draws: labels equal, the GMM's iterations equal,
+    its parameters and the centres within CARD_VS_CPU_REL relative. The
+    check where a kernel's plain version would stand. -> seconds each."""
+    import numpy as np
+
+    from forest_tpu_torch.eval import cluster as cl
+    x = z_type[np.random.default_rng(SEED).choice(
+        len(z_type), min(CARD_VS_CPU_ROWS, len(z_type)), replace=False)]
+    fz = (fia_z - fia_z.mean(0)) / np.maximum(fia_z.std(0, ddof=1), 1e-12)
+    runs = {"gmm": lambda dev: cl.GaussianMixture(
+                16, covariance_type="diag", random_state=SEED, max_iter=200,
+                device=dev).fit(x),
+            "kmeans": lambda dev: cl.KMeans(5, n_init=10, random_state=SEED,
+                                            device=dev).fit(fz),
+            "hdbscan": lambda dev: cl.HDBSCAN(20, 20, device=dev).fit(fz)}
+    res, problems = {}, []
+    for name, run in runs.items():
+        out, secs = {}, {}
+        for dev in ("cpu", device):
+            t0 = time.perf_counter()
+            out[dev] = run(dev)
+            secs[dev] = time.perf_counter() - t0
+        cpu, card = out["cpu"], out[device]
+        labels = (cpu.predict(x), card.predict(x)) if name == "gmm" else (
+            cpu.labels_, card.labels_)
+        if not np.array_equal(*labels):
+            problems.append(f"{name}: labels differ in "
+                            f"{int((labels[0] != labels[1]).sum())} rows")
+        rel = 0.0
+        for attr in {"gmm": ("weights_", "means_", "covariances_"),
+                     "kmeans": ("cluster_centers_",), "hdbscan": ()}[name]:
+            a, b = getattr(cpu, attr), getattr(card, attr)
+            rel = max(rel, float(np.abs(a - b).max()
+                                 / max(np.abs(a).max(), 1e-300)))
+        if not rel <= CARD_VS_CPU_REL:
+            problems.append(f"{name}: parameters {rel} apart")
+        if name == "gmm" and cpu.n_iter_ != card.n_iter_:
+            problems.append(f"gmm: {cpu.n_iter_} vs {card.n_iter_} "
+                            "iterations")
+        res[name] = {"card_s": secs[device], "cpu_s": secs["cpu"],
+                     "max_rel_diff": rel,
+                     "clusters": int(len(set(labels[1].tolist())
+                                         - {-1}))}
+        if name == "gmm":
+            res[name]["n_iter"] = card.n_iter_
+    if problems:
+        raise AssertionError(f"clustering card vs cpu: {problems}")
+    return res
+
+
+def clustering_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 16: the clustering and FIA CLIs as a user runs them, on phase
+    14's 1536 x 1536 cube and last checkpoint, each with the launch counts
+    set to 0 just before it and read just after. (a) ``eval.gmm`` at its
+    defaults (patches of 128, capacity 100,000, components 4 8 16 24 32)
+    with the EVT column: a best K among them, finite BIC, labels for every
+    sampled pixel, K1 launched on every batch, and K1 held to its plain
+    version on gmm's first batch (clustering_k1_vs_plain); (b)
+    ``eval.landscape_categories`` at its defaults (500,000 pixels, K 5-50
+    step 5, 3 inits, silhouette on 20,000) but DYNAMIC_VAR_THRESHOLD:
+    ``taxonomy.json`` and the pickles, a phase sweep per dynamic cluster
+    and the second pass over the same batches; the reservoir drawn again
+    as the CLI drew it (landscape_reservoir) falls in the type clusters in
+    the taxonomy's numbers; then one GMM fit at GMM_TIMED_K on those
+    500,000 pixels, timed alone; (c)
+    ``embed_locations`` on FIA_POINTS points inside the AOI and forest,
+    then ``eval.fia`` with each of its four analyses on that CSV
+    (fia_table): finite tables; (d) cluster_card_vs_cpu. -> the
+    readings."""
+    import numpy as np
+
+    from forest_tpu_torch.data import zarrlite as zl
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.eval import embed_locations, fia, gmm
+    from forest_tpu_torch.eval import landscape_categories as lc
+    from forest_tpu_torch.eval.cluster import GaussianMixture
+    from forest_tpu_torch.training.checkpointing import load_state_raw
+
+    ckpt = tmp / "runs" / "frl_v1" / "checkpoints" / "encoder_last.msgpack"
+    bpath = tmp / "bindings.yaml"
+    zt_dim = load_state_raw(ckpt)[1]["model_config"]["model"]["z_type_dim"]
+    common = ["--checkpoint", str(ckpt), "--bindings", str(bpath)]
+    if device != "cuda":
+        common += ["--device", device]
+    on_card = device == "cuda"
+    res, problems = {}, []
+
+    def batches(split, patch, min_aoi):
+        ds = ForestDatasetV2(parse_bindings(str(bpath)), split=split,
+                             patch_size=patch, split_block_size=(4, 4),
+                             min_aoi=min_aoi)
+        return -(-len(ds) // 4)
+
+    # (a) the GMM sweep by BIC against EVT
+    lines, sec, k1 = _printed(gmm.main, common + [
+        "--output", str(tmp / "gmm.npz"),
+        "--evt-source", "static_categorical.evt"])
+    summary, npz = json.loads(lines[-1]), np.load(tmp / "gmm.npz")
+    n_b = batches("train", 128, 0.3)
+    if summary["best_k"] not in (4, 8, 16, 24, 32) or not all(
+            np.isfinite(v) for v in summary["bic"].values()) or \
+            npz["labels"].shape != (summary["n_samples"],) or \
+            not 0 <= summary["nmi"] <= 1:
+        problems.append(f"gmm: {summary}")
+    if on_card and k1 < n_b:
+        problems.append(f"gmm: {n_b} batches launched K1 {k1}")
+    res["gmm"] = {"seconds": sec, "k1_launches": k1, "batches": n_b,
+                  "pixels_fit": summary["n_samples"],
+                  "best_k": summary["best_k"], "nmi": summary["nmi"],
+                  "purity": summary["purity"],
+                  "k1_vs_plain": clustering_k1_vs_plain(ckpt, bpath,
+                                                        device)}
+
+    # (b) the landscape taxonomy, both passes
+    odir = tmp / "taxonomy"
+    lines, sec, k1 = _printed(lc.main, common + [
+        "--output-dir", str(odir),
+        "--dynamic-var-threshold", DYNAMIC_VAR_THRESHOLD])
+    tj = json.loads((odir / "taxonomy.json").read_text())
+    with open(odir / "type_gmm.pkl", "rb") as f:
+        type_pkl = pickle.load(f)
+    # the reservoir again, as the CLI drew it: its pixels fall in the
+    # taxonomy's clusters in the same numbers
+    z500, n_seen = landscape_reservoir(ckpt, bpath, device)
+    sizes = np.bincount(type_pkl["gmm"].predict(z500),
+                        minlength=tj["k_type"]).tolist()
+    dyn = [k for k, c in tj["clusters"].items() if c["is_dynamic"]]
+    if tj["n_pixels_fit"] != len(z500) or not dyn or \
+            tj["k_type"] not in range(5, 51, 5) or \
+            not all((odir / f"phase_gmm_{k}.pkl").is_file() for k in dyn) \
+            or sizes != [tj["clusters"][str(k)]["n_type_pixels"]
+                         for k in range(tj["k_type"])] or \
+            not any("pass 2" in ln for ln in lines):
+        problems.append(f"landscape: {tj}, sizes {sizes}")
+    n_b = batches("train", 128, 0.3)
+    if on_card and k1 < 2 * n_b:
+        problems.append(f"landscape: {n_b} batches x 2 passes launched K1 "
+                        f"{k1}")
+    t0 = time.perf_counter()
+    one = GaussianMixture(GMM_TIMED_K, covariance_type="diag",
+                          max_iter=200, random_state=SEED,
+                          device=device).fit(z500)
+    fit_s = time.perf_counter() - t0
+    res["landscape"] = {
+        "seconds": sec, "k1_launches": k1, "batches_per_pass": n_b,
+        "passes": 2, "pixels_seen": n_seen,
+        "pixels_fit": tj["n_pixels_fit"], "k_type": tj["k_type"],
+        "dynamic_clusters": tj["n_dynamic_clusters"],
+        "k_phase": {k: tj["clusters"][k]["k_phase"] for k in dyn},
+        "q90_temporal_var": sorted(c["q90_temporal_var"]
+                                   for c in tj["clusters"].values()),
+        "type_silhouette": type_pkl["silhouette_curve"],
+        "timed_fit": {"rows": list(z500.shape), "k": GMM_TIMED_K,
+                      "n_iter": one.n_iter_, "seconds": fit_s,
+                      "ms_per_iter": 1e3 * fit_s / max(one.n_iter_, 1)}}
+
+    # (c) FIA: points inside the AOI and forest, their embeddings, the
+    # four analyses
+    cube = zl.open_zarr(tmp / "cube.zarr")
+    aoi = np.asarray(cube["aoi"]) > 0
+    hw = aoi.shape[1]
+    inside = np.flatnonzero(aoi & (np.asarray(
+        cube["static/lcms/data/forest"]) > 0))
+    pts = np.random.default_rng(SEED).choice(inside, FIA_POINTS,
+                                             replace=False)
+    locs = tmp / "fia_points.csv"
+    np.savetxt(locs, np.stack([pts // hw, pts % hw], 1), fmt="%d",
+               delimiter=",", header="row,col", comments="")
+    rows, sec, k1 = _timed(embed_locations.main, common + [
+        "--locations", str(locs), "--output", str(tmp / "fia_emb.csv"),
+        "--patch-size", "256", "--evt-source", "static_categorical.evt"])
+    table = fia_table(tmp, rows, zt_dim, hw)
+    res["fia"] = {"embed_seconds": sec, "k1_launches": k1,
+                  "points": len(rows)}
+    runs = {"hierarchical": ["--target", "BALIVE"],
+            "hdbscan": ["--target", "BALIVE"],
+            "removals": ["--target", "REMV", "--transfer-target", "BALIVE",
+                         "--aux-col", "TCC"],
+            "probe_table": ["--target", "BALIVE"]}
+    fia_dev = [] if on_card else ["--device", device]
+    for name, extra in runs.items():
+        lines, sec, _ = _printed(fia.main, [
+            "--csv", str(table), "--analysis", name, "--unit-col", "UNITCD",
+            "--report-dir", str(tmp / f"fia_{name}")] + extra + fia_dev)
+        out = json.loads(lines[-1])
+        vals = ([v for r in out["table"].values() for v in r.values()]
+                if "table" in out else
+                [out[k] for k in ("within_var", "pct_of_baseline")])
+        if out["n_plots"] != FIA_POINTS or not all(np.isfinite(vals)):
+            problems.append(f"fia {name}: {out}")
+        res["fia"][name] = {"seconds": sec, **{
+            k: v for k, v in out.items()
+            if k in ("pct_of_baseline", "hdbscan_k", "min_pts",
+                     "noise_frac", "n_fine_bins")}}
+        if name == "removals":
+            res["fia"][name]["pct_of_baseline"] = {
+                k: r["pct_of_baseline"] for k, r in out["table"].items()}
+    if problems:
+        raise AssertionError(f"clustering tools: {problems}")
+
+    # (d) the card's fits against the CPU's
+    fz = np.asarray([[r[f"z_type_{d}"] for d in range(zt_dim)]
+                     for r in rows if r.get("valid")])
+    res["card_vs_cpu"] = cluster_card_vs_cpu(z500, fz, device)
+    return res
+
+
 def build_vqvae_step(zarr, run_dir, device: str = "cuda"):
     """The VQ-VAE of configs/vae_v0.yaml over the cube at ``zarr`` as
     ``train_vqvae.train`` assembles it (schema, dataset, seeded weights,
@@ -2472,7 +2843,10 @@ def main() -> int:
         log(f"training CLI: {json.dumps(cli)}")
         torch.cuda.empty_cache()
         evals = eval_tools_and_check(Path(d))                 # phase 15
-    log(f"eval tools: {json.dumps(evals)}")
+        log(f"eval tools: {json.dumps(evals)}")
+        torch.cuda.empty_cache()
+        clus = clustering_tools_and_check(Path(d))            # phase 16
+    log(f"clustering tools: {json.dumps(clus, default=float)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -2563,6 +2937,29 @@ def main() -> int:
         f"epochs (K1 {evals['train_probe']['k1_launches']}); phase_probe "
         f"{evals['phase_probe']['seconds']:.2f} s (K1 "
         f"{evals['phase_probe']['k1_launches']}) ({card})")
+    g_, l_, f_ = clus["gmm"], clus["landscape"], clus["fia"]
+    tf = l_["timed_fit"]
+    log(f"clustering tools on the {CLI_CUBE_HW}^2 cube: gmm "
+        f"{g_['seconds']:.2f} s ({g_['pixels_fit']} pixels fit, best K "
+        f"{g_['best_k']}, K1 {g_['k1_launches']} launches in "
+        f"{g_['batches']} batches, K1 at {g_['k1_vs_plain']['k1_input']} "
+        f"{g_['k1_vs_plain']['rel_err_vs_plain']:.3g} from its plain "
+        f"version); "
+        f"landscape_categories {l_['seconds']:.2f} s ({l_['pixels_fit']} "
+        f"of {l_['pixels_seen']} pixels fit, K_type {l_['k_type']}, "
+        f"{l_['dynamic_clusters']} dynamic, K_phase {l_['k_phase']}, "
+        f"{l_['passes']} passes, K1 {l_['k1_launches']} launches); one "
+        f"diag GMM fit at K {tf['k']} on "
+        f"{tf['rows'][0]} x {tf['rows'][1]}: {tf['n_iter']} EM iterations "
+        f"in {tf['seconds']:.2f} s ({tf['ms_per_iter']:.2f} ms each); fia: "
+        f"embed_locations {f_['embed_seconds']:.2f} s for {f_['points']} "
+        f"points (K1 {f_['k1_launches']}), "
+        + ", ".join(f"{k} {f_[k]['seconds']:.2f} s" for k in
+                    ("hierarchical", "hdbscan", "removals", "probe_table"))
+        + "; card against the CPU (s): "
+        + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
+                    for k, v in clus["card_vs_cpu"].items())
+        + f" ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [
@@ -2570,7 +2967,9 @@ def main() -> int:
                      {"serving": serve["launches"],
                       "training": steps["bank_mix_fwd"],
                       "training_cli": cli["launches"]["bank_mix_fwd"],
-                      "eval": sum(evals[k]["k1_launches"] for k in evals)},
+                      "eval": sum(evals[k]["k1_launches"] for k in evals),
+                      "clustering": sum(clus[k]["k1_launches"] for k in
+                                        ("gmm", "landscape", "fia"))},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],

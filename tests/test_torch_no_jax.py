@@ -1,9 +1,12 @@
 """The port stands alone: nothing under forest_tpu_torch/ nor chip_smoke.py
-imports jax, flax, optax or the JAX package forest_tpu.
+imports jax, flax, optax or the JAX package forest_tpu, nor scikit-learn,
+which the card's machine does not have; matplotlib, which it does not have
+either, is imported only inside the functions that draw a figure.
 
 A static scan of every source file for import statements, and a subprocess
-that imports every module of the port with those names blocked in
-``sys.modules`` (an import of a blocked name raises ImportError there).
+that imports every module of the port with those names (and matplotlib)
+blocked in ``sys.modules`` (an import of a blocked name raises ImportError
+there).
 """
 import ast
 import subprocess
@@ -13,7 +16,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "forest_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "forest_tpu", "sklearn")
+# imported only inside a function, never when a module is imported
+LAZY = ("matplotlib",)
 SOURCES = sorted((ROOT / "forest_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -33,6 +38,19 @@ def test_source_imports_nothing_of_jax(path):
     bad = [(name, line) for name, line in _imported_roots(path)
            if name in BLOCKED]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_matplotlib_only_inside_functions(path):
+    tree = ast.parse(path.read_text(), str(path))
+    top = [node for node in tree.body
+           if isinstance(node, (ast.Import, ast.ImportFrom))]
+    bad = [node.lineno for node in top
+           for name in ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+           if (name or "").split(".")[0] in LAZY]
+    assert not bad, f"{path.relative_to(ROOT)} imports matplotlib at {bad}"
 
 
 def test_scan_sees_the_whole_port():
@@ -71,6 +89,12 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/losses/triplet_phase.py",
                  "forest_tpu_torch/losses/evt_soft_neighborhood.py",
                  "forest_tpu_torch/training/representation/diagnostics.py",
+                 "forest_tpu_torch/eval/cluster.py",
+                 "forest_tpu_torch/eval/gmm.py",
+                 "forest_tpu_torch/eval/landscape_categories.py",
+                 "forest_tpu_torch/eval/fia.py",
+                 "forest_tpu_torch/eval/tau_calibration.py",
+                 "forest_tpu_torch/utils/log.py",
                  "chip_smoke.py"):
         assert must in names, must
 
@@ -78,7 +102,7 @@ def test_scan_sees_the_whole_port():
 def test_every_module_imports_with_jax_blocked():
     code = f"""
 import importlib, pkgutil, sys
-for name in {BLOCKED!r}:
+for name in {BLOCKED + LAZY!r}:
     sys.modules[name] = None          # any import of it raises ImportError
 sys.path.insert(0, {str(ROOT)!r})
 import forest_tpu_torch
@@ -87,10 +111,10 @@ mods = ["forest_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED + LAZY!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
-assert len(mods) > 45, mods
+assert len(mods) > 51, mods
 print("imported", len(mods))
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
