@@ -167,7 +167,35 @@ Phases, each of which passes or raises (any failure exits non-zero):
     the type forward on gmm's first batch (4 train patches of 128) with K1
     and with its plain version swapped in, z_type within 2^-5 relative.
     Printed: each tool's seconds, the pixels fit, the timed fit's
-    iterations and seconds, and K1's launches.
+    iterations and seconds, and K1's launches;
+17. the diagnostics tools and the reference-checkpoint import as a user
+    runs them, on phase 14's cube and checkpoint, each CLI with the launch
+    counts set to 0 just before it and read just after: (a)
+    ``eval.visualize.main`` with ``--probe --forest-diag`` at its defaults
+    (4 test patches of 256): it ends and counts its figures (none where
+    matplotlib does not import, each skip logged), K1 launched for every
+    patch of its four per-patch families; then the gate forward
+    (``return_gate``) on the first-ranked patch with K1 and with its plain
+    version, z_type and the gate within 2^-5 relative, and
+    ``collect_forest_diag_records`` on that patch on the card and on the
+    CPU from the same phase probe (fit on the card): masks and ysfc_min
+    equal, observed targets within 1e-5, predictions within 2^-5 relative;
+    (b) ``eval.phase_diagnostics.main --probe`` at its defaults (8 train
+    patches) on the card and on the CPU: the same files, the summaries'
+    EVT classes and pixel counts equal, every CSV cell within 2^-5 of its
+    column's scale (``ysfc_by_evt.csv`` byte for byte); (c) phase 14's
+    encoder written as a reference trainer's ``.pt`` (its weights under the
+    reference's names and layouts, the reference's config schema) through
+    ``utils.torch_import.main``: the imported params equal the trained ones
+    bit for bit, and the import, loaded by ``frozen.load_frozen_model`` on
+    the card (float32, as the reference's config carries no compute
+    dtype), encodes one test patch with K1 within 1e-4 relative of its
+    plain version; (d) HDBSCAN on 60,000 points of four blobs in 56
+    dimensions (min 40), whose dense matrices the earlier fit would have
+    needed 3 x 28.8 GB for: four clusters, the allocator's peak below
+    1 GiB. Printed: each tool's seconds, the CPU runs' seconds, K1's
+    launches, the errors, HDBSCAN's seconds and peak memory, and the
+    phase's time.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -187,7 +215,8 @@ device.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's source, launches by main path (serving, the FRL training step,
-the FRL training CLI and, for K1, the eval and the clustering tools; for the
+the FRL training CLI and, for K1, the eval, clustering and diagnostics
+tools; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep), error, times, and its bound: the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
@@ -2293,6 +2322,381 @@ def clustering_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     return res
 
 
+# phase 17: the diagnostics tools and the reference-checkpoint import on
+# phase 14's cube and checkpoint, then HDBSCAN at a size whose dense
+# [N, N] float64 matrices (3 x 28.8 GB at N 60,000) no card holds
+HDBSCAN_N, HDBSCAN_D, HDBSCAN_MIN = 60_000, 56, 40
+HDBSCAN_PEAK_BOUND = 1 << 30
+# An imported reference encoder runs in float32 (the reference's config has
+# no compute dtype): K1 and its plain version differ by float32 sums in
+# another order (F32_BOUND at the kernel), here through the gate's two
+# convolutions; bound on max |diff| / max |ref|.
+IMPORT_REL_BOUND = 1e-4
+# The phase probe's observed targets are the data's float32 features (a
+# transform, an affine and the whitening) in another order on the card than
+# on the CPU, in float64 back to the data's scale.
+DIAG_OBS_REL_BOUND = 1e-5
+
+
+def diag_k1_vs_plain(model, fb, batch) -> dict:
+    """``visualize``'s gate forward (``make_encode_gate``) on one patch with
+    K1 and with its plain version swapped in: z_type and the gate within
+    SERVE_REL_BOUND relative. -> the launches and both errors."""
+    from forest_tpu_torch.eval.visualize import make_encode_gate
+    from forest_tpu_torch.models import spatial
+    from forest_tpu_torch.ops import smoothing as sm
+
+    encode_gate = make_encode_gate(model, fb)
+    reset_launches()
+    kernel = [t.float() for t in encode_gate(batch)]
+    launches = read_launches()["bank_mix_fwd"]
+    spatial.bank_mix = sm.bank_mix_reference
+    try:
+        plain = [t.float() for t in encode_gate(batch)]
+    finally:
+        spatial.bank_mix = sm.bank_mix
+    res = {"launches": launches, "shape": list(kernel[0].shape)}
+    for name, k, p in zip(("z_type", "gate"), kernel, plain):
+        res[f"{name}_rel_err_vs_plain"] = float(
+            (k - p).abs().max() / p.abs().max().clamp_min(1e-12))
+    on_card = next(iter(batch.values())).is_cuda
+    if not max(res["z_type_rel_err_vs_plain"],
+               res["gate_rel_err_vs_plain"]) <= SERVE_REL_BOUND or (
+            on_card and not launches):
+        raise AssertionError(f"visualize's gate forward, K1 vs plain "
+                             f"(bound {SERVE_REL_BOUND}): {res}")
+    return res
+
+
+def forest_diag_card_vs_cpu(ckpt: Path, bpath: Path,
+                            device: str = "cuda") -> dict:
+    """``collect_forest_diag_records`` on the card and on the CPU from the
+    same phase probe (fit on the card over two batches of the test split,
+    as ``visualize --forest-diag`` fits it over eight) on the patch the
+    CLI ranks first: the masks and ysfc_min equal, the observed target
+    within DIAG_OBS_REL_BOUND and the prediction within SERVE_REL_BOUND of
+    its largest magnitude (bf16 K1 against the CPU's plain bf16 path). Also
+    K1 against its plain version on that patch's gate forward
+    (diag_k1_vs_plain). -> the errors and the seconds on each side."""
+    import numpy as np
+
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.eval import frozen
+    from forest_tpu_torch.eval import phase_probe as pp
+    from forest_tpu_torch.eval import visualize as vis
+    from forest_tpu_torch.eval.phase_diagnostics import _resolve_phase_target
+
+    bindings = parse_bindings(str(bpath))
+    fb = FeatureBuilder(bindings)
+    ds = ForestDatasetV2(bindings, split="test", patch_size=256,
+                         split_block_size=(4, 4))
+    pick = vis.rank_patches_by_ysfc(ds)[0][0]
+    out, secs, res = {}, {}, {}
+    for dev in (device, "cpu"):
+        model = frozen.load_frozen_model(ckpt, dev)
+        enc_t, enc_p, _ = frozen.make_encode_fns(model, fb)
+        if dev == device:
+            res["k1_vs_plain"] = diag_k1_vs_plain(model, fb, (
+                frozen.batch_to_device(ds.load_batch([pick]), dev)))
+            tfeat = _resolve_phase_target(
+                bindings, getattr(model, "phase_feature", "phase_ccdc"))
+            targets_fn = frozen.make_phase_target_fn(fb, tfeat)
+
+            def enc_phase_fn(batch, coords):
+                ta, tm = targets_fn(batch, coords)
+                return enc_p(batch, coords), ta, tm
+
+            w, pre = pp.fit_phase_probe(enc_t, enc_phase_fn, ds,
+                                        max_batches=2, device=dev)
+        t0 = time.perf_counter()
+        out[dev] = vis.collect_forest_diag_records(
+            enc_t, enc_p, fb, ds, [pick], w, pre, tfeat, device=dev)[0]
+        secs[dev] = time.perf_counter() - t0
+    card, cpu = out[device], out["cpu"]
+    problems = []
+    for k, v in cpu.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        if k.startswith(("target_", "pred_")):
+            rel = float(np.abs(card[k] - v).max()
+                        / max(np.abs(v).max(), 1e-12))
+            res[f"{k}_rel_err"] = rel
+            bound = DIAG_OBS_REL_BOUND if k.startswith("target_") \
+                else SERVE_REL_BOUND
+            if not rel <= bound:
+                problems.append(f"{k}: {rel} > {bound}")
+        elif not np.array_equal(card[k], v, equal_nan=v.dtype != bool):
+            problems.append(f"{k} differs")
+    if problems:
+        raise AssertionError(f"forest diag records card vs cpu: {problems}")
+    res.update({"patch": pick, "target": tfeat, "card_s": secs[device],
+                "cpu_s": secs["cpu"]})
+    return res
+
+
+def _numeric(cell: str):
+    try:
+        return int(cell)
+    except ValueError:
+        try:
+            return float(cell)
+        except ValueError:
+            return None
+
+
+def same_tables(card_dir: Path, cpu_dir: Path) -> dict:
+    """Every CSV of two ``phase_diagnostics`` runs: the same rows, text and
+    integer cells equal, each other cell within SERVE_REL_BOUND of
+    max(1, the column's largest magnitude) (bf16 K1 against the CPU's plain
+    bf16 path, through means, variance fractions, the probe's refit and
+    quantiles of its predictions). ``ysfc_by_evt.csv`` reads no embedding,
+    so it must be equal byte for byte. -> each table's largest scaled
+    difference."""
+    import csv
+
+    res, problems = {}, []
+    for path in sorted(cpu_dir.glob("*.csv")):
+        other = card_dir / path.name
+        if path.name == "ysfc_by_evt.csv":
+            if other.read_bytes() != path.read_bytes():
+                problems.append("ysfc_by_evt.csv differs")
+            res[path.name] = 0.0
+            continue
+        with open(path) as f:
+            ref = list(csv.DictReader(f))
+        with open(other) as f:
+            got = list(csv.DictReader(f))
+        if len(got) != len(ref) or (ref and list(got[0]) != list(ref[0])):
+            problems.append(f"{path.name}: rows or columns differ")
+            continue
+        worst = 0.0
+        for col in (ref[0] if ref else ()):
+            vals = [_numeric(r[col]) for r in ref]
+            if any(v is None or isinstance(v, int) for v in vals):
+                if [r[col] for r in got] != [r[col] for r in ref]:
+                    problems.append(f"{path.name} {col} differs")
+                continue
+            scale = max(1.0, max(abs(v) for v in vals))
+            worst = max(worst, max(abs(float(g[col]) - v) for g, v in
+                                   zip(got, vals)) / scale)
+        res[path.name] = worst
+        if not worst <= SERVE_REL_BOUND:
+            problems.append(f"{path.name}: {worst} > {SERVE_REL_BOUND}")
+    if problems or not res:
+        raise AssertionError(f"phase_diagnostics card vs cpu: {problems}")
+    return res
+
+
+def reference_state_dict_of(model) -> dict:
+    """The port model's weights under the reference trainer's key names
+    and layouts (the inverse of ``utils.torch_import``'s mapping: the
+    encoder's Sequential slots, ``mix_backbone``'s gx / gy input blocks,
+    ``gate_net`` slots, 1x1 Conv2d heads), with the smoothing block's
+    constant buffers the importer skips. -> name -> tensor on the host."""
+    import torch
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out, j = {}, 0
+    stages = len(model.hparams["type_encoder_channels"])
+    for i in range(stages):
+        out[f"encoder.layers.{j}.weight"] = sd[f"encoder.conv_{i}.weight"]
+        for leaf in ("weight", "bias"):
+            out[f"encoder.layers.{j + 1}.{leaf}"] = \
+                sd[f"encoder.norm_{i}.{leaf}"]
+        j += 2 + (i < stages - 1)                  # the ReLU's slot
+    mb = sd["spatial_conv.mix_backbone.weight"]
+    out["spatial_conv.mix_backbone.0.weight"] = torch.cat(
+        [mb[:, 0::2], mb[:, 1::2]], 1)
+    out["spatial_conv.mix_backbone.0.bias"] = \
+        sd["spatial_conv.mix_backbone.bias"]
+    c = mb.shape[1] // 2
+    out["spatial_conv.bank"] = torch.zeros(
+        model.hparams["spatial_conv_num_directions"], c, 1, 3, 3)
+    out["spatial_conv.sobel_x"] = out["spatial_conv.sobel_y"] = \
+        torch.zeros(c, 1, 3, 3)
+    renames = {"spatial_conv.gate_0.": "spatial_conv.gate_net.0.",
+               "spatial_conv.gate_1.": "spatial_conv.gate_net.2.",
+               "spatial_conv.mix_head_": "spatial_conv.mix_head_",
+               "phase_tcn.block_": "phase_tcn.layers.",
+               "phase_head.": "phase_head.",
+               "phase_film.gamma_0.": "phase_film.gamma_network.0.",
+               "phase_film.gamma_1.": "phase_film.gamma_network.2.",
+               "phase_film.beta_0.": "phase_film.beta_network.0.",
+               "phase_film.beta_1.": "phase_film.beta_network.2."}
+    for k, v in sd.items():
+        for old, new in renames.items():
+            if k.startswith(old):
+                if v.dim() == 2:                   # Linear -> 1x1 Conv2d
+                    v = v[:, :, None, None]
+                out[new + k[len(old):]] = v.clone()
+    return out
+
+
+def reference_import_and_check(ckpt: Path, bpath: Path,
+                               device: str = "cuda") -> dict:
+    """Phase 14's trained encoder written as the reference trainer writes
+    a checkpoint (its weights under the reference's names, the model
+    config in the reference's schema with ``latents``, the input widths),
+    through ``utils.torch_import.main``: the imported params equal the
+    trained ones bit for bit; the import loaded by
+    ``frozen.load_frozen_model`` on the card encodes one test patch of 256
+    with K1 and with its plain version, within IMPORT_REL_BOUND. -> the
+    errors and the import's seconds."""
+    import torch
+
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.frl_dataset import ForestDatasetV2
+    from forest_tpu_torch.eval import frozen
+    from forest_tpu_torch.training.checkpointing import load_state_raw
+    from forest_tpu_torch.utils import torch_import
+
+    meta = load_state_raw(ckpt)[1]
+    trained = frozen.load_frozen_model(ckpt, "cpu")
+    m = meta["model_config"]["model"]
+    ref_cfg = {"latents": {k: m[k] for k in ("z_type_dim", "z_phase_dim")},
+               **{k: {kk: vv for kk, vv in m[k].items()
+                      if kk != "compute_dtype"}
+                  for k in ("type_encoder", "spatial_conv", "phase_tcn")},
+               "type_projection": {"enabled": False}}
+    for sec in ("type_encoder", "phase_tcn"):
+        ref_cfg[sec]["dropout"] = ref_cfg[sec].pop("dropout_rate", 0.0)
+    pt, out = ckpt.parent / "reference_encoder.pt", \
+        ckpt.parent / "imported.msgpack"
+    torch.save({"model_state_dict": reference_state_dict_of(trained),
+                "model_config": ref_cfg, "epoch": 3,
+                "type_in_channels": meta["type_in_channels"],
+                "phase_in_channels": meta["phase_in_channels"]}, pt)
+    t0 = time.perf_counter()
+    torch_import.main(["--checkpoint", str(pt), "--output", str(out)])
+    sec = time.perf_counter() - t0
+    imported = frozen.load_frozen_model(out, device)
+    want = trained.state_dict()
+    same = all(torch.equal(v.cpu(), want[k])
+               for k, v in imported.state_dict().items()) and \
+        imported.state_dict().keys() == want.keys()
+    ds = ForestDatasetV2(parse_bindings(str(bpath)), split="test",
+                         patch_size=256, split_block_size=(4, 4))
+    patch = {k: v[0] for k, v in ds.load_batch([0]).items()}
+    reset_launches()
+    (k_zt, k_zp), (p_zt, p_zp) = kernel_and_plain(out, bpath, patch, device)
+    launches = read_launches()["bank_mix_fwd"]
+    res = {"import_s": sec, "params_equal": same, "launches": launches,
+           "compute_dtype": imported.hparams["spatial_conv_compute_dtype"]}
+    for name, k, p in (("z_type", k_zt, p_zt), ("z_phase", k_zp, p_zp)):
+        res[f"{name}_rel_err_vs_plain"] = float(
+            abs(k - p).max() / max(abs(p).max(), 1e-12))
+    if not same or not max(res["z_type_rel_err_vs_plain"],
+                           res["z_phase_rel_err_vs_plain"]) \
+            <= IMPORT_REL_BOUND or (device == "cuda" and not launches):
+        raise AssertionError(f"reference import (bound "
+                             f"{IMPORT_REL_BOUND}): {res}")
+    return res
+
+
+def hdbscan_at_scale(device: str = "cuda") -> dict:
+    """HDBSCAN on HDBSCAN_N points of four seeded Gaussian blobs in
+    HDBSCAN_D dimensions (min HDBSCAN_MIN) on the card: four clusters, the
+    allocator's peak over the input below HDBSCAN_PEAK_BOUND. -> seconds,
+    peak bytes, clusters and the noise share."""
+    import numpy as np
+    import torch
+
+    from forest_tpu_torch.eval import cluster as cl
+    rng = np.random.default_rng(SEED)
+    x = np.concatenate([c + rng.normal(size=(HDBSCAN_N // 4, HDBSCAN_D))
+                        for c in rng.normal(scale=6.0,
+                                            size=(4, HDBSCAN_D))])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    labels = cl.HDBSCAN(HDBSCAN_MIN, HDBSCAN_MIN, device=device).fit(
+        x).labels_
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    res = {"n": HDBSCAN_N, "d": HDBSCAN_D, "min": HDBSCAN_MIN,
+           "seconds": sec, "peak_bytes": peak,
+           "dense_bytes": 3 * 8 * HDBSCAN_N ** 2,
+           "clusters": len(set(labels.tolist()) - {-1}),
+           "noise_frac": float((labels < 0).mean())}
+    if res["clusters"] != 4 or (on_card and not peak < HDBSCAN_PEAK_BOUND):
+        raise AssertionError(f"hdbscan at N {HDBSCAN_N}: {res}")
+    return res
+
+
+def diagnostics_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 17: the diagnostics CLIs as a user runs them, on phase 14's
+    1536 x 1536 cube and last checkpoint, each with the launch counts set
+    to 0 just before it and read just after. (a) ``eval.visualize`` with
+    ``--probe --forest-diag`` at its defaults (4 test patches of 256): it
+    ends, reports a figure count (0 where matplotlib does not import), K1
+    launched for each patch of its four per-patch families; then
+    forest_diag_card_vs_cpu; (b) ``eval.phase_diagnostics --probe`` at its
+    defaults (8 train patches of 256) on the card and again on the CPU: the
+    same files, every CSV within same_tables' bound, the summaries'
+    ``n_evt_classes`` and ``n_pixels_total`` equal; (c)
+    reference_import_and_check; (d) hdbscan_at_scale. -> the readings."""
+    from forest_tpu_torch.eval import phase_diagnostics, visualize
+
+    t_start = time.perf_counter()
+    ckpt = tmp / "runs" / "frl_v1" / "checkpoints" / "encoder_last.msgpack"
+    bpath = tmp / "bindings.yaml"
+    common = ["--checkpoint", str(ckpt), "--bindings", str(bpath)]
+    dev_arg = [] if device == "cuda" else ["--device", device]
+    res, problems = {}, []
+
+    # (a) the figure sheets, both families
+    lines, sec, k1 = _printed(visualize.main, common + dev_arg + [
+        "--out", str(tmp / "visualize"), "--probe", "--forest-diag"])
+    wrote = [ln for ln in lines if ln.startswith("wrote ")]
+    skipped = sum("skipped the figure" in ln for ln in lines)
+    if not wrote or (device == "cuda" and k1 < 4 * 4):
+        problems.append(f"visualize: {wrote}, K1 {k1}")
+    res["visualize"] = {"seconds": sec, "k1_launches": k1,
+                        "figures": int(wrote[-1].split()[1]) if wrote
+                        else None, "figures_skipped": skipped,
+                        "card_vs_cpu": forest_diag_card_vs_cpu(ckpt, bpath,
+                                                               device)}
+
+    # (b) the per-EVT reports on the card and on the CPU
+    runs = {}
+    for dev in (device, "cpu"):
+        out = tmp / f"phase_diagnostics_{dev}"
+        lines, sec, k1 = _printed(phase_diagnostics.main, common + [
+            "--out", str(out), "--probe", "--device", dev])
+        runs[dev] = (out, sec, k1,
+                     json.loads((out / "summary.json").read_text()))
+    (cout, csec, ck1, csum), (pout, psec, _, psum) = runs[device], \
+        runs["cpu"]
+    names = sorted(p.name for p in cout.iterdir())
+    if names != sorted(p.name for p in pout.iterdir()) or \
+            "probe_r2_by_evt.csv" not in names or \
+            (device == "cuda" and ck1 < 8):
+        problems.append(f"phase_diagnostics: {names}, K1 {ck1}")
+    for k in ("n_evt_classes", "n_pixels_total", "top_evt_codes"):
+        if csum[k] != psum[k]:
+            problems.append(f"phase_diagnostics {k}: {csum[k]} vs {psum[k]}")
+    if problems:
+        raise AssertionError(f"diagnostics tools: {problems}")
+    res["phase_diagnostics"] = {
+        "seconds": csec, "cpu_seconds": psec, "k1_launches": ck1,
+        "files": names, "n_evt_classes": csum["n_evt_classes"],
+        "n_pixels_total": csum["n_pixels_total"],
+        "probe_r2_global_mean": [csum["probe_r2_global_mean"],
+                                 psum["probe_r2_global_mean"]],
+        "tables_vs_cpu": same_tables(cout, pout)}
+
+    # (c) a reference checkpoint through the importer; (d) HDBSCAN
+    res["reference_import"] = reference_import_and_check(ckpt, bpath, device)
+    res["hdbscan"] = hdbscan_at_scale(device)
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
 def build_vqvae_step(zarr, run_dir, device: str = "cuda"):
     """The VQ-VAE of configs/vae_v0.yaml over the cube at ``zarr`` as
     ``train_vqvae.train`` assembles it (schema, dataset, seeded weights,
@@ -2846,7 +3250,10 @@ def main() -> int:
         log(f"eval tools: {json.dumps(evals)}")
         torch.cuda.empty_cache()
         clus = clustering_tools_and_check(Path(d))            # phase 16
-    log(f"clustering tools: {json.dumps(clus, default=float)}")
+        log(f"clustering tools: {json.dumps(clus, default=float)}")
+        torch.cuda.empty_cache()
+        diag = diagnostics_tools_and_check(Path(d))           # phase 17
+    log(f"diagnostics tools: {json.dumps(diag, default=float)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -2960,6 +3367,27 @@ def main() -> int:
         + ", ".join(f"{k} {v['card_s']:.3f} / {v['cpu_s']:.3f}"
                     for k, v in clus["card_vs_cpu"].items())
         + f" ({card})")
+    v_, pd_, ri_, hd_ = (diag[k] for k in ("visualize", "phase_diagnostics",
+                                           "reference_import", "hdbscan"))
+    log(f"diagnostics tools on the {CLI_CUBE_HW}^2 cube in "
+        f"{diag['seconds']:.2f} s: visualize --probe --forest-diag "
+        f"{v_['seconds']:.2f} s ({v_['figures']} figures, "
+        f"{v_['figures_skipped']} skipped, K1 {v_['k1_launches']} "
+        f"launches; gate forward "
+        f"{v_['card_vs_cpu']['k1_vs_plain']['gate_rel_err_vs_plain']:.3g} "
+        f"from its plain version; forest-diag records card "
+        f"{v_['card_vs_cpu']['card_s']:.2f} s, CPU "
+        f"{v_['card_vs_cpu']['cpu_s']:.2f} s); phase_diagnostics --probe "
+        f"{pd_['seconds']:.2f} s (CPU {pd_['cpu_seconds']:.2f} s, K1 "
+        f"{pd_['k1_launches']} launches, {pd_['n_evt_classes']} EVT "
+        f"classes, {pd_['n_pixels_total']} pixels, tables within "
+        f"{max(pd_['tables_vs_cpu'].values()):.3g} of the CPU's); "
+        f"reference import {ri_['import_s']:.2f} s (z_type "
+        f"{ri_['z_type_rel_err_vs_plain']:.3g} from its plain version); "
+        f"HDBSCAN at N {hd_['n']}, D {hd_['d']}: {hd_['seconds']:.2f} s, "
+        f"peak {hd_['peak_bytes'] / 2 ** 20:.1f} MiB against "
+        f"{hd_['dense_bytes'] / 1e9:.1f} GB dense, {hd_['clusters']} "
+        f"clusters ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [
@@ -2969,7 +3397,10 @@ def main() -> int:
                       "training_cli": cli["launches"]["bank_mix_fwd"],
                       "eval": sum(evals[k]["k1_launches"] for k in evals),
                       "clustering": sum(clus[k]["k1_launches"] for k in
-                                        ("gmm", "landscape", "fia"))},
+                                        ("gmm", "landscape", "fia")),
+                      "diagnostics": sum(diag[k]["k1_launches"] for k in
+                                         ("visualize",
+                                          "phase_diagnostics"))},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],

@@ -26,9 +26,10 @@ Every random draw comes from a numpy generator made on the host from
 ``random_state`` (an int or None seeds a fresh ``np.random.default_rng``;
 a Generator is drawn from as it is), so a fit on the card and the same fit
 on the CPU start from the same numbers. The arithmetic runs on ``device`` in
-float64, whatever the input's type; HDBSCAN's tree (Prim's) and its walks
-run on the host. A fit reads one set of scalars from the device per EM or
-Lloyd iteration, to test convergence. Fitted attributes are numpy arrays, so a
+float64, whatever the input's type; HDBSCAN grows Prim's tree on ``device``
+one mutual-reachability row a step, in memory linear in N, and walks it on
+the host. A fit reads one set of scalars from the device per EM or Lloyd
+iteration, to test convergence. Fitted attributes are numpy arrays, so a
 pickled model loads with the port alone; methods take numpy arrays or
 tensors and return numpy arrays.
 """
@@ -42,6 +43,8 @@ import torch
 
 # rows of a [rows, N] block of float64 distances (2^25 elements, 256 MB)
 BLOCK_ELEMENTS = 1 << 25
+# eager runs of a repeated device step before it is captured as a graph
+_GRAPH_WARM = 3
 _EXACT = "donot_use_mm_for_euclid_dist"
 _GMM_ILL_DEFINED = (
     "Fitting the mixture model failed because some components have "
@@ -634,29 +637,73 @@ class KNeighborsRegressor:
 # HDBSCAN
 # ---------------------------------------------------------------------------
 
-def _prim_mst(mr: np.ndarray) -> Tuple[np.ndarray, ...]:
-    """Prim's tree over a dense mutual-reachability matrix, from node 0,
-    as scikit-learn's ``mst_from_data_matrix`` grows it: each step takes
-    the first node (lowest index) at the least reachability, and an edge's
-    source is the tree node that last lowered that node's reachability.
+def _core_distances(x: torch.Tensor, min_samples: int) -> torch.Tensor:
+    """Distance of each row to its ``min_samples``-th nearest row, the row
+    itself counted, by [block, N] blocks of rows."""
+    step = _block_rows(x.shape[0])
+    return torch.cat([_euclidean(x[s:s + step], x).kthvalue(
+        min_samples, dim=1).values for s in range(0, x.shape[0], step)])
+
+
+def _repeat(step, times: int, device) -> None:
+    """Run ``step`` (device work only, every tensor updated in place)
+    ``times`` times. On a card the first _GRAPH_WARM run eagerly on a side
+    stream, then one run is captured as a CUDA graph and replayed for the
+    rest: one launch a step where the step's own ops take a dozen."""
+    if torch.device(device).type != "cuda" or times <= _GRAPH_WARM:
+        for _ in range(times):
+            step()
+        return
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(_GRAPH_WARM):
+            step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(times - _GRAPH_WARM):
+        graph.replay()
+
+
+def _prim_mst(x: torch.Tensor, core: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """Prim's tree over the mutual reachability max(d(i, j), core_i,
+    core_j), from node 0, as scikit-learn's ``mst_from_data_matrix`` grows
+    it: each step takes the first node (lowest index) at the least
+    reachability, and an edge's source is the tree node that last lowered
+    that node's reachability. One [N] row of the reachability a step, on
+    x's device (_repeat); the current node and the step's index stay
+    device tensors, so no step waits for the host, and the edges come back
+    in one copy.
     -> (sources, targets, weights) of the n - 1 edges in the order added."""
-    n = mr.shape[0]
-    in_tree = np.zeros(n, bool)
-    reach = np.full(n, np.inf)
-    source = np.zeros(n, np.int64)
-    src = np.empty(max(n - 1, 0), np.int64)
-    dst, w = np.empty_like(src), np.empty(max(n - 1, 0))
-    cur = 0
-    for i in range(n - 1):
-        in_tree[cur] = True
-        row = mr[cur]
+    n, dev = x.shape[0], x.device
+    m = max(n - 1, 0)
+    in_tree = torch.zeros(n, dtype=torch.bool, device=dev)
+    reach = torch.full((n,), math.inf, dtype=x.dtype, device=dev)
+    source = torch.zeros(n, dtype=torch.long, device=dev)
+    src = torch.empty(m, dtype=torch.long, device=dev)
+    dst, w = torch.empty_like(src), torch.empty(m, dtype=x.dtype, device=dev)
+    cur = torch.zeros(1, dtype=torch.long, device=dev)
+    i = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def step():
+        in_tree.index_fill_(0, cur, True)
+        row = torch.maximum(torch.maximum(
+            _euclidean(x.index_select(0, cur), x)[0], core),
+            core.index_select(0, cur))
         lower = row < reach
-        reach[lower] = row[lower]
-        source[lower] = cur
-        cand = np.where(in_tree, np.inf, reach)
-        cur = int(cand.argmin())
-        src[i], dst[i], w[i] = source[cur], cur, cand[cur]
-    return src, dst, w
+        reach.copy_(torch.where(lower, row, reach))
+        source.copy_(torch.where(lower, cur, source))
+        cand = reach.masked_fill(in_tree, math.inf)
+        cur.copy_(cand.argmin().view(1))
+        dst.index_copy_(0, i, cur)
+        w.index_copy_(0, i, cand.index_select(0, cur))
+        src.index_copy_(0, i, source.index_select(0, cur))
+        i.add_(1)
+
+    _repeat(step, m, dev)
+    return _host(src), _host(dst), _host(w)
 
 
 def _single_linkage(src, dst, w) -> np.ndarray:
@@ -808,8 +855,8 @@ class HDBSCAN:
     excess of mass, ``allow_single_cluster=False``,
     ``cluster_selection_epsilon=0``): ``fit`` sets ``labels_``, -1 for
     noise. ``min_samples`` (default ``min_cluster_size``) counts the point
-    itself. The distances and core distances run on ``device``; Prim's
-    tree and the tree walks on the host."""
+    itself. The core distances and Prim's tree run on ``device`` in memory
+    linear in N (no [N, N] matrix); the tree walks on the host."""
 
     def __init__(self, min_cluster_size: int = 5,
                  min_samples: Optional[int] = None, *, device="cuda"):
@@ -824,11 +871,9 @@ class HDBSCAN:
         if ms > x.shape[0]:
             raise ValueError(f"min_samples ({ms}) must be at most the number "
                              f"of samples in X ({x.shape[0]})")
-        d = _euclidean(x, x)
-        core = d.kthvalue(ms, dim=1).values
-        mr = torch.maximum(d, torch.maximum(core[:, None], core[None, :]))
-        tree = _condense_tree(_single_linkage(*_prim_mst(_host(mr))),
-                              self.min_cluster_size)
+        tree = _condense_tree(
+            _single_linkage(*_prim_mst(x, _core_distances(x, ms))),
+            self.min_cluster_size)
         self.labels_ = _eom_labels(tree)
         return self
 

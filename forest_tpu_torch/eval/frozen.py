@@ -18,6 +18,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from forest_tpu_torch.data.feature_builder import FeatureBuilder
@@ -47,6 +48,23 @@ def batch_to_device(batch: Mapping, device, keep: Optional[set] = None
                 else to_device(v, device))
             for k, v in batch.items()
             if not k.startswith("__") and (keep is None or k in keep)}
+
+
+def to_host(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Device tensors -> numpy arrays of the same shapes in one copy:
+    booleans stay booleans, float64 stays float64, the rest is float32."""
+    wide = any(t.dtype == torch.float64 for t in tensors.values())
+    flat = torch.cat([t.reshape(-1).to(torch.float64 if wide
+                                       else torch.float32)
+                      for t in tensors.values()]).cpu().numpy()
+    out, at = {}, 0
+    for k, t in tensors.items():
+        a = flat[at:at + t.numel()].reshape(tuple(t.shape))
+        out[k] = a.astype(bool if t.dtype == torch.bool else
+                          np.float64 if t.dtype == torch.float64 else
+                          np.float32)
+        at += t.numel()
+    return out
 
 
 def _batch_size(batch: Mapping) -> int:
@@ -161,4 +179,4 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 __all__ = ["load_frozen_model", "make_encode_fns", "make_encode_phase_film",
            "make_phase_target_fn", "require_patches", "batch_to_device",
-           "resolve_device"]
+           "to_host", "resolve_device"]

@@ -254,6 +254,16 @@ def fit_phase_probe(encode_type_fn: Callable, encode_phase_fn: Callable,
     return ridge.solve(ridge_lambda), pre
 
 
+def predict_phase_probe(w: np.ndarray, pre: PhaseProbePreprocessor,
+                        zt: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
+    """The fitted probe on rows [N, dt], [N, dp] -> [N, C] float64, on zt's
+    device: the design in the embeddings' float32, then the preprocessor
+    and W (its last row the bias) in float64."""
+    w_t = torch.as_tensor(w, dtype=torch.float64, device=zt.device)
+    x = pre.transform(build_design_matrix(zt, zp, pre.design))
+    return x @ w_t[:-1] + w_t[-1]
+
+
 def inverse_normalization_fn(fb, feature_name: str) -> Callable:
     """Map normalised values [N, C] (a float64 numpy array or a tensor)
     back to the data's scale: un-whiten, invert the preset's affine, invert
@@ -617,5 +627,5 @@ if __name__ == "__main__":
 __all__ = ["DESIGN_CHOICES", "PhaseProbePreprocessor",
            "build_design_matrix", "design_dim", "fit_phase_probe",
            "evaluate_phase_probe", "inverse_normalization_fn",
-           "iter_phase_blocks", "make_probe_mask_fn",
+           "iter_phase_blocks", "make_probe_mask_fn", "predict_phase_probe",
            "format_phase_probe_report", "main"]

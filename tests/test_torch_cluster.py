@@ -324,3 +324,24 @@ def test_hdbscan_min_samples_defaults_to_min_cluster_size():
     assert same_partition(cl.HDBSCAN(8, device="cpu").fit(x).labels_, ref)
     with pytest.raises(ValueError, match="min_samples"):
         cl.HDBSCAN(len(x) + 1, device="cpu").fit(x)
+
+
+def test_hdbscan_makes_no_n_by_n_tensor(monkeypatch):
+    """Memory linear in N: with blocks of 1,000 elements, no distance
+    block ``_euclidean`` returns holds N x N elements, and the labels stay
+    scikit-learn's."""
+    x, _ = blobs(seed=18, k=4, d=5, n=70, scale=5.0, noise=20)
+    n = len(x)
+    euclidean = cl._euclidean
+
+    def guarded(a, b):
+        out = euclidean(a, b)
+        assert out.numel() < n * n, tuple(out.shape)
+        return out
+
+    monkeypatch.setattr(cl, "BLOCK_ELEMENTS", 1000)
+    monkeypatch.setattr(cl, "_euclidean", guarded)
+    ref = SkHDBSCAN(min_cluster_size=10, min_samples=10).fit(x).labels_
+    got = cl.HDBSCAN(10, 10, device="cpu").fit(x).labels_
+    assert n == 300 and same_partition(got, ref)
+    assert (got >= 0).any() and (got < 0).any()

@@ -6,7 +6,10 @@ fixture is
 tiny float32 checkpoints). On the card the smoothing kernel K1 runs; on the
 CPU its plain version. TF32 is off (``torch_parity``). The clustering
 estimators (``eval/cluster.py``) fit in float64 from the same host draws on
-both. Every test is marked ``cuda`` and skips where there is no card.
+both. The diagnostics tools (``phase_diagnostics``, ``visualize``) and
+an imported reference checkpoint run float32 models, K1 against its plain
+version with sums in another order. Every test is marked ``cuda`` and skips
+where there is no card.
 """
 import json
 import pickle
@@ -23,8 +26,12 @@ from forest_tpu_torch.eval import export_embeddings as tee
 from forest_tpu_torch.eval import cluster as cl
 from forest_tpu_torch.eval import frozen, gmm, phase_probe, train_probe
 from forest_tpu_torch.eval import landscape_categories as lc
-from torch_parity import (EVAL_PATCH, cuda_device, eval_locations,  # noqa
-                          read_csv, write_port_eval_fixture)
+from forest_tpu_torch.eval import phase_diagnostics as tpd
+from forest_tpu_torch.eval import visualize as tvis
+from forest_tpu_torch.utils import torch_import as tti
+from torch_parity import (EVAL_CFG, EVAL_PATCH, cuda_device,  # noqa
+                          eval_locations, read_csv, reference_state_dict,
+                          write_port_eval_fixture)
 
 SPLIT = dict(patch_size=EVAL_PATCH, split_block_size=(1, 1))
 
@@ -204,3 +211,130 @@ def test_clustering_clis_on_the_card_match_the_cpu(cuda_device, files,
         assert tg[k] == tc[k], k
     assert sorted(c["n_type_pixels"] for c in tg["clusters"].values()) == \
         sorted(c["n_type_pixels"] for c in tc["clusters"].values())
+
+
+@pytest.mark.cuda
+def test_phase_diagnostics_on_the_card_matches_the_cpu(cuda_device, files,
+                                                       tmp_path, capsys):
+    """``phase_diagnostics --probe`` on the card and on the CPU: the same
+    files, integer cells equal, every other cell within 1e-4 (float32
+    models; the probe's float64 fit on embeddings 1e-6 apart)."""
+    argv = _argv(files) + ["--split-block-size", "1", "1", "--n-patches",
+                           "4", "--probe", "--probe-max-batches", "2"]
+    for dev in ("cpu", "cuda"):
+        tpd.main(argv + ["--out", str(tmp_path / dev), "--device", dev])
+    names = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    assert sorted(p.name for p in (tmp_path / "cuda").iterdir()) == names
+    tables = [n for n in names if n.endswith(".csv")]
+    assert len(tables) == 5
+    for name in tables:
+        cols, crows = read_csv(tmp_path / "cpu" / name)
+        _, grows = read_csv(tmp_path / "cuda" / name)
+        assert len(grows) == len(crows) > 0
+        for c_, g_ in zip(crows, grows):
+            for k in cols:
+                if k.startswith(("evt_", "n_", "count", "total", "bin_",
+                                 "ysfc_bin")):
+                    assert g_[k] == c_[k], (name, k)
+                else:
+                    np.testing.assert_allclose(float(g_[k]), float(c_[k]),
+                                               rtol=1e-4, atol=1e-4,
+                                               err_msg=f"{name} {k}")
+    sums = [json.loads((tmp_path / d / "summary.json").read_text())
+            for d in ("cpu", "cuda")]
+    for k in ("n_evt_classes", "n_pixels_total", "top_evt_codes"):
+        assert sums[1][k] == sums[0][k], k
+
+
+@pytest.mark.cuda
+def test_visualize_on_the_card_matches_the_cpu(cuda_device, files, tmp_path,
+                                               capsys):
+    """The records behind the sheets from the same probe weights on the
+    card and on the CPU within 1e-5, the gate forward too; the CLI with
+    ``--probe --forest-diag`` runs to its end on the card."""
+    fb = FeatureBuilder(parse_bindings(str(files["bindings"])))
+    ds = ForestDatasetV2(fb.bindings, split="test", **SPLIT)
+    rng = np.random.default_rng(8)
+    c = len(fb.bindings.get_feature("infonce_type_spectral").channels)
+    w_lin = rng.normal(scale=0.3, size=(9, c))
+    pre = phase_probe.PhaseProbePreprocessor(
+        "full", 8, 3, rng.normal(scale=0.2, size=35), 0.5 + rng.random(35),
+        np.linalg.qr(rng.normal(size=(24, 4)))[0])
+    w_phase = rng.normal(scale=0.05, size=(16, 2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = frozen.load_frozen_model(files["ckpt"], dev)
+        enc_t, enc_p, _ = frozen.make_encode_fns(model, fb)
+        gate = tvis.make_encode_gate(model, fb)(
+            frozen.batch_to_device(ds.load_batch([0]), dev))
+        out[str(dev)] = (
+            tvis.collect_patch_records(enc_t, fb, ds, "infonce_type_spectral",
+                                       w_lin, 2, device=dev),
+            tvis.collect_forest_diag_records(enc_t, enc_p, fb, ds, [1, 0],
+                                             w_phase, pre, "phase_target",
+                                             device=dev),
+            [t.cpu().numpy() for t in gate])
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    for recs_c, recs_g in zip(cpu[:2], gpu[:2]):
+        for rc, rg in zip(recs_c, recs_g):
+            for k, v in rc.items():
+                if isinstance(v, np.ndarray) and v.dtype != bool:
+                    np.testing.assert_allclose(rg[k], v, rtol=1e-5,
+                                               atol=1e-5, err_msg=k)
+                elif isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(rg[k], v, err_msg=k)
+    for g_, c_ in zip(gpu[2], cpu[2]):
+        np.testing.assert_allclose(g_, c_, rtol=1e-5, atol=1e-5)
+    tvis.main(_argv(files) + ["--out", str(tmp_path), "--split-block-size",
+                              "1", "1", "--n", "2", "--probe",
+                              "--forest-diag"])
+    assert "figures to" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_reference_import_on_the_card(cuda_device, tmp_path):
+    """A reference checkpoint (synthetic state_dict under the reference's
+    key names) through the importer's CLI, loaded on the card: z_type and
+    z_phase of a seeded patch within 1e-5 of the same file on the CPU."""
+    import torch
+    sd = reference_state_dict(np.random.default_rng(9), EVAL_CFG, 4, 3)
+    torch.save({"model_state_dict": {k: torch.from_numpy(np.asarray(v))
+                                     for k, v in sd.items()},
+                "model_config": EVAL_CFG, "type_in_channels": 4,
+                "phase_in_channels": 3}, tmp_path / "ref.pt")
+    tti.main(["--checkpoint", str(tmp_path / "ref.pt"), "--output",
+              str(tmp_path / "imported.msgpack")])
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
+    px = torch.from_numpy(rng.normal(size=(9, 15, 3)).astype(np.float32))
+    res = []
+    for dev in ("cpu", cuda_device):
+        model = frozen.load_frozen_model(tmp_path / "imported.msgpack", dev)
+        with torch.inference_mode():
+            zt = model(x.to(dev))
+            zp = model.forward_phase_at_locations(px.to(dev), zt[0, 0, :9])
+        res.append([zt.cpu().numpy(), zp.cpu().numpy()])
+    for g_, c_ in zip(res[1], res[0]):
+        assert np.isfinite(g_).all()
+        np.testing.assert_allclose(g_, c_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hdbscan_on_the_card_in_linear_memory(cuda_device):
+    """12,000 points in 56 dimensions, min 40: the labels equal the CPU's,
+    and the card's peak allocation stays below 1 GB, where the dense
+    mutual reachability alone would take 8 N^2 bytes (1.15 GB, three such
+    matrices in the old fit)."""
+    import torch
+    rng = np.random.default_rng(11)
+    x = np.concatenate([c + rng.normal(size=(3000, 56))
+                        for c in rng.normal(scale=6.0, size=(4, 56))])
+    cpu = cl.HDBSCAN(40, 40, device="cpu").fit(x).labels_
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gpu = cl.HDBSCAN(40, 40, device=cuda_device).fit(x).labels_
+    peak = torch.cuda.max_memory_allocated() - base
+    np.testing.assert_array_equal(gpu, cpu)
+    assert len(set(gpu.tolist()) - {-1}) == 4
+    assert peak < 1 << 30, peak

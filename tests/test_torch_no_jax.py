@@ -95,6 +95,9 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/eval/fia.py",
                  "forest_tpu_torch/eval/tau_calibration.py",
                  "forest_tpu_torch/utils/log.py",
+                 "forest_tpu_torch/eval/phase_diagnostics.py",
+                 "forest_tpu_torch/eval/visualize.py",
+                 "forest_tpu_torch/utils/torch_import.py",
                  "chip_smoke.py"):
         assert must in names, must
 

@@ -384,3 +384,87 @@ def read_csv(path):
     with open(path) as f:
         rd = csv.DictReader(f)
         return rd.fieldnames, list(rd)
+
+
+# --- the reference-checkpoint importer --------------------------------
+
+def reference_state_dict(rng, cfg, tin, pin):
+    """A reference-shaped state_dict (numpy, N(0, 0.2^2) from ``rng``) for
+    a version-4 model config: the reference's key names and layouts, the
+    Sobel buffers and, with the projection head, a BatchNorm1d with its
+    running statistics (the key inventory of ``utils/torch_import.py``)."""
+    m = cfg["model"]
+    zt, zp = m["z_type_dim"], m["z_phase_dim"]
+    tch = list(m["type_encoder"]["channels"])
+    ks = m["type_encoder"].get("kernel_size", 1)
+    pch = list(m["phase_tcn"]["channels"])
+    pk = m["phase_tcn"].get("kernel_size", 3)
+    s = m.get("spatial_conv", {})
+    gh = s.get("gate_hidden", 64)
+    gk = s.get("gate_kernel_size", 3)
+    nd = s.get("num_directions", 4)
+    r = s.get("rank", 4)
+    proj = m.get("type_projection") or {}
+
+    def t(*shape):
+        return rng.normal(scale=0.2, size=shape).astype(np.float32)
+
+    sd = {}
+    j, prev = 0, tin
+    for i, ch in enumerate(tch):
+        sd[f"encoder.layers.{j}.weight"] = t(ch, prev, ks, ks)
+        sd[f"encoder.layers.{j + 1}.weight"] = t(ch)
+        sd[f"encoder.layers.{j + 1}.bias"] = t(ch)
+        j += 2 + (1 if i < len(tch) - 1 else 0)  # ReLU slot (dropout=0)
+        prev = ch
+
+    c = zt
+    sd["spatial_conv.bank"] = t(nd, c, 1, 3, 3)
+    sd["spatial_conv.sobel_x"] = t(c, 1, 3, 3)
+    sd["spatial_conv.sobel_y"] = t(c, 1, 3, 3)
+    sd["spatial_conv.mix_backbone.0.weight"] = t(gh, 2 * c, 3, 3)
+    sd["spatial_conv.mix_backbone.0.bias"] = t(gh)
+    sd["spatial_conv.mix_head_A.weight"] = t(2 * nd * r, gh, 1, 1)
+    sd["spatial_conv.mix_head_A.bias"] = t(2 * nd * r)
+    sd["spatial_conv.mix_head_B.weight"] = t(c * r, gh, 1, 1)
+    sd["spatial_conv.mix_head_B.bias"] = t(c * r)
+    sd["spatial_conv.gate_net.0.weight"] = t(gh, c, gk, gk)
+    sd["spatial_conv.gate_net.0.bias"] = t(gh)
+    sd["spatial_conv.gate_net.2.weight"] = t(c, gh, gk, gk)
+    sd["spatial_conv.gate_net.2.bias"] = t(c)
+
+    prev = pin
+    for i, ch in enumerate(pch):
+        pre = f"phase_tcn.layers.{i}"
+        if prev != ch:
+            sd[f"{pre}.projection.weight"] = t(ch, prev, 1)
+            sd[f"{pre}.projection.bias"] = t(ch)
+        sd[f"{pre}.conv.weight"] = t(ch, prev, pk)
+        sd[f"{pre}.conv.bias"] = t(ch)
+        sd[f"{pre}.norm.weight"] = t(ch)
+        sd[f"{pre}.norm.bias"] = t(ch)
+        sd[f"{pre}.gate.weight"] = t(ch, ch, 1)
+        sd[f"{pre}.gate.bias"] = t(ch)
+        prev = ch
+
+    sd["phase_head.weight"] = t(zp, pch[-1], 1, 1)
+    sd["phase_head.bias"] = t(zp)
+    fh = max(zt, zp) // 2
+    for net in ("gamma_network", "beta_network"):
+        sd[f"phase_film.{net}.0.weight"] = t(fh, zt, 1, 1)
+        sd[f"phase_film.{net}.0.bias"] = t(fh)
+        sd[f"phase_film.{net}.2.weight"] = t(zp, fh, 1, 1)
+        sd[f"phase_film.{net}.2.bias"] = t(zp)
+
+    if proj:
+        ph, po = proj["hidden_dim"], proj["output_dim"]
+        sd["type_projection.net.0.weight"] = t(ph, zt)
+        sd["type_projection.net.0.bias"] = t(ph)
+        sd["type_projection.net.1.weight"] = np.abs(t(ph)) + 0.5
+        sd["type_projection.net.1.bias"] = t(ph)
+        sd["type_projection.net.1.running_mean"] = t(ph)
+        sd["type_projection.net.1.running_var"] = np.abs(t(ph)) + 0.5
+        sd["type_projection.net.1.num_batches_tracked"] = np.asarray(7)
+        sd["type_projection.net.3.weight"] = t(po, ph)
+        sd["type_projection.net.3.bias"] = t(po)
+    return sd
