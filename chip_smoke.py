@@ -249,7 +249,34 @@ Phases, each of which passes or raises (any failure exits non-zero):
     rank in every FRL step and K4 in every VQ-VAE step. Printed: each
     rank's step ms beside the plain step's on 6 rows alone, the gradient
     all-reduce's ms with gloo on one card and with NCCL at world size 1,
-    and the phase's seconds.
+    and the phase's seconds;
+20. the compact wire, K steps per block and the VQ-VAE config ladder,
+    run after phase 19 (``wire_and_check``): (a) three CLI runs of
+    ``configs/vae_v0.yaml`` at its full width (emb 128, hidden 128,
+    codebook 256, batch 64) on a 256² legacy cube, 8 steps each from one
+    seed: plain, ``wire_compact: true`` and the wire with
+    ``steps_per_dispatch: 4``, which the CLI accepts and runs one step at a
+    time (cuDNN deterministic for the three): the last two equal bit for
+    bit in history and parameters, the wire within 2e-2
+    of plain in train and validation ``loss_total`` (the JAX package's
+    bound), K4 launched once a train and a validation step in each; (b)
+    ``run_epoch`` of the v1 model on phase 14's cube, 2 steps with
+    ``wire_compact=True`` and the step's ``wire_skip``, against the same
+    epoch with the wire off from the same start: ``loss_total`` within
+    2e-2, K1, K2 and K3 launched every step; one train batch assembled
+    channel-major, encoded, copied and decoded on the card equal to the
+    channel-last batch rounded to bfloat16 bit for bit, the categorical
+    group, the masks and the windows exact; (c) ``configs/vae_evt_only.
+    yaml``, ``vae_static_only.yaml`` and ``vae_full.yaml`` at their full
+    widths, 4 CLI steps each on a 256² cube of the sources
+    ``tests/test_config_ladder.py`` gives them: every metric finite, K4
+    once a train and a validation step; (d) ``decode_wire_batch`` on the
+    card equal to the same decode on the CPU, bit for bit, for the VQ-VAE
+    batch with a uint16 id leaf added (ids up to 2**16 - 1) and the
+    channel-major FRL batch. Printed: H2D bytes per batch
+    plain and on the wire, ms per step of each VQ-VAE run and ladder rung,
+    the FRL epochs' seconds and loader waits, the loader's seconds per
+    batch channel-major against the channel-last stack.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -272,7 +299,8 @@ kernel's source, launches by main path (serving, the FRL training step,
 the FRL training CLI and, for K1, the eval, clustering and diagnostics
 tools and the encoder on the built cube; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
-and the variant sweep; for K1-K4 the data-parallel ranks of phase 19),
+and the variant sweep; for K1-K4 the data-parallel ranks of phase 19; for
+K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder),
 error, times, and its bound: the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32 outside the tensor cores; 989 TFLOP/s
@@ -4450,6 +4478,349 @@ def data_parallel_and_check(tmp: Path, device: str = "cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the compact wire, K steps per block and the VQ-VAE config ladder
+# ---------------------------------------------------------------------------
+WIRE_VQ_STEPS = 8              # one epoch of each of the three CLI runs
+WIRE_VQ_BLOCK = 4              # steps_per_dispatch of the third run
+WIRE_LOSS_REL_BOUND = 2e-2     # tests/test_wire.py: the wire against plain
+WIRE_FRL_BATCHES = 2           # phase 14's 16 train patches, batches of 12
+# the config ladder's cubes, as tests/test_config_ladder.py builds them
+LADDER = {"vae_evt_only.yaml": dict(n_cont=0, n_cat=2, n_naip=0),
+          "vae_static_only.yaml": dict(years=(2021,), n_cont=6, n_cat=0,
+                                       n_naip=3),
+          "vae_full.yaml": dict(n_cont=56, n_cat=4, n_naip=4)}
+LADDER_STEPS = 4
+
+
+def _vq_cli(zarr: Path, run_dir: Path, config: dict, steps: int,
+            device: str) -> dict:
+    """``train_vqvae.main`` on a YAML holding ``config``, one epoch of
+    ``steps``, with K4's count set to 0 just before and read just after.
+    -> its history row, K4's launches, the validation steps it ran, the
+    final parameters and its seconds."""
+    import yaml
+
+    from forest_tpu_torch.data.samplers import ChunkBatchSampler
+    from forest_tpu_torch.data.vqvae_dataset import VQVAEDataset
+    from forest_tpu_torch.training import train_vqvae
+
+    cfg_path = run_dir.with_suffix(".yaml")
+    cfg_path.write_text(yaml.safe_dump({"train_vqvae": config}))
+    argv = ["--config", str(cfg_path), "--zarr", str(zarr), "--run-dir",
+            str(run_dir), "--epochs", "1", "--steps-per-epoch", str(steps)]
+    if device != "cuda":
+        argv += ["--device", device]
+    reset_launches()
+    t0 = time.perf_counter()
+    train_vqvae.main(argv)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()["vq_core"]
+    (row,) = json.loads((run_dir / "history.json").read_text())
+    cfg = train_vqvae.load_config(str(cfg_path), {})
+    ds_va = VQVAEDataset(zarr, run_dir / "schema.json",
+                         split=cfg["split_val"],
+                         block_size=tuple(cfg["block_size"]))
+    val_steps = min(cfg.get("val_steps", 20), len(ChunkBatchSampler(
+        ds_va.xy_by_chunk, cfg["batch_size"], drop_last=True,
+        replacement_within_chunk=True)))
+    return {"history": row, "launches": launches, "val_steps": val_steps,
+            "params": _ckpt_params(run_dir / "ckpt" / "ckpt_last.msgpack"),
+            "seconds": seconds}
+
+
+def _launches_want(steps: int, device: str) -> int:
+    """A kernel's launches over ``steps`` steps that launch it once each:
+    on the CPU the wrappers run their plain versions and count none."""
+    import torch
+    return steps if torch.device(device).type == "cuda" else 0
+
+
+def _metrics(row: dict) -> dict:
+    return {k: v for k, v in row.items()
+            if k.startswith(("train/", "val/"))}
+
+
+def _same_bits(a, b) -> bool:
+    """Two host arrays (or CPU tensors) equal byte for byte, NaN bits too."""
+    import numpy as np
+    a, b = (x.numpy() if hasattr(x, "numpy") else np.asarray(x)
+            for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def decode_card_vs_cpu(encoded: dict, device: str = "cuda") -> int:
+    """``decode_wire_batch`` of one encoded batch on ``device`` and on the
+    CPU, every leaf compared bit for bit. -> the leaves compared."""
+    from forest_tpu_torch.data.loader import make_device_put
+    from forest_tpu_torch.data.wire import decode_wire_batch
+
+    card = decode_wire_batch(make_device_put(device, ())(encoded), device)
+    cpu = decode_wire_batch(make_device_put("cpu", ())(encoded), "cpu")
+    leaves = {}
+    for k, v in cpu.items():
+        if isinstance(v, dict):
+            leaves.update({f"{k}/{n}": (card[k][n], a)
+                           for n, a in v.items()})
+        else:
+            leaves[k] = (card[k], v)
+    bad = [k for k, (c, h) in leaves.items() if not _same_bits(c.cpu(), h)]
+    if bad or sorted(card) != sorted(cpu):
+        raise AssertionError(f"decode on {device} differs from the CPU's: "
+                             f"{bad}")
+    return len(leaves)
+
+
+def wire_vqvae_and_check(work: Path, device: str = "cuda") -> dict:
+    """(a) the VQ-VAE of configs/vae_v0.yaml at its full width on a 256²
+    legacy cube, three CLI runs of WIRE_VQ_STEPS from one seed: plain,
+    ``wire_compact: true``, and the wire with ``steps_per_dispatch:
+    WIRE_VQ_BLOCK``, which the CLI runs one step at a time (cuDNN
+    deterministic for the three, so that the last two can be compared bit
+    for bit). The wire run and the one with the block key equal in history
+    and parameters; the wire within WIRE_LOSS_REL_BOUND of plain
+    (train and validation loss_total); K4 once a train and a validation
+    step in each. Printed: H2D bytes of one batch plain and on the wire, ms
+    per step of each run. (d) the decode of that wire batch, with a uint16
+    id leaf added, on the card equal to the CPU's."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from forest_tpu_torch.data.cube import build_synthetic_cube
+    from forest_tpu_torch.data.samplers import ChunkBatchSampler
+    from forest_tpu_torch.data.vqvae_dataset import VQVAEDataset
+    from forest_tpu_torch.data.wire import encode_wire_batch, wire_bytes
+    from forest_tpu_torch.training import train_vqvae
+
+    zarr = work / "wire_legacy.zarr"
+    build_synthetic_cube(zarr, height=256, width=256,
+                         years=tuple(range(2017, 2022)), n_cont=8, n_cat=2,
+                         n_naip=3, seed=SEED)
+    base = yaml.safe_load((ROOT / "configs/vae_v0.yaml").read_text())[
+        "train_vqvae"]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("plain", {}), ("wire", {"wire_compact": True}),
+                            ("block", {"wire_compact": True,
+                                       "steps_per_dispatch": WIRE_VQ_BLOCK})):
+            runs[name] = _vq_cli(zarr, work / f"vq_{name}",
+                                 dict(base, **extra), WIRE_VQ_STEPS, device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    wire, block, plain = runs["wire"], runs["block"], runs["plain"]
+    problems = []
+    if _metrics(wire["history"]) != _metrics(block["history"]):
+        problems.append("the history with steps_per_dispatch differs from "
+                        "the wire run's")
+    differ = [n for n, v in wire["params"].items()
+              if not _same_bits(v, block["params"][n])]
+    if differ:
+        problems.append(f"parameters with steps_per_dispatch differ: "
+                        f"{differ}")
+    rel = {k: _rel(wire["history"][k], plain["history"][k])
+           for k in ("train/loss_total", "val/loss_total")}
+    if max(rel.values()) > WIRE_LOSS_REL_BOUND:
+        problems.append(f"the wire against plain: {rel}")
+    for name, r in runs.items():
+        if r["launches"] != _launches_want(WIRE_VQ_STEPS + r["val_steps"],
+                                           device):
+            problems.append(f"{name}: {WIRE_VQ_STEPS} train and "
+                            f"{r['val_steps']} validation steps launched "
+                            f"vq_core {r['launches']} times")
+        bad = [k for k, v in _metrics(r["history"]).items()
+               if not np.isfinite(v)]
+        if bad:
+            problems.append(f"{name}: non-finite {bad}")
+    if problems:
+        raise AssertionError(f"wire VQ-VAE: {problems}")
+
+    ds = VQVAEDataset(zarr, work / "vq_plain" / "schema.json",
+                      split="train", block_size=tuple(base["block_size"]))
+    idx = next(iter(ChunkBatchSampler(ds.xy_by_chunk, base["batch_size"],
+                                      drop_last=True, seed=SEED)))
+    host = {k: v for k, v in ds.load_batch(idx).items()
+            if k not in ("years", "yx")}
+    enc = encode_wire_batch(host, int_bounds=train_vqvae.wire_int_bounds(ds))
+    # the uint16 tier (a vocabulary of more than 256 ids), extremes included
+    ids = np.random.default_rng(SEED).integers(0, 2 ** 16, (64, 5),
+                                               dtype=np.int32)
+    ids.reshape(-1)[:2] = (0, 2 ** 16 - 1)
+    u16 = encode_wire_batch({"ids": ids}, int_bounds={"ids": 2 ** 16})
+    if u16["ids"].dtype != np.uint16:
+        raise AssertionError(f"ids below 2**16 travel as {u16['ids'].dtype}")
+    return {
+        "runs": {n: {"seconds": r["seconds"], "launches": r["launches"],
+                     "val_steps": r["val_steps"],
+                     "ms_per_step": 1e3 * r["history"]["step_s"]
+                     / WIRE_VQ_STEPS,
+                     "train_loss_total": r["history"]["train/loss_total"],
+                     "val_loss_total": r["history"]["val/loss_total"]}
+                 for n, r in runs.items()},
+        "wire_vs_plain_rel": rel, "block_equals_wire": True,
+        "bytes_per_batch": {"plain": wire_bytes(host),
+                            "wire": wire_bytes(enc)},
+        "decode_leaves_card_vs_cpu": decode_card_vs_cpu(dict(enc, **u16),
+                                                        device)}
+
+
+def wire_frl_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """(b) ``run_epoch`` of the v1 model over phase 14's cube and configs in
+    ``tmp``, WIRE_FRL_BATCHES steps with ``wire_compact=True`` and
+    ``wire_skip`` from the step's configuration, then the same epoch from
+    the same seeded start with the wire off: loss_total within
+    WIRE_LOSS_REL_BOUND; K1, K2 and K3 launched every step of the wire
+    epoch. One batch of the train split assembled channel-major, encoded,
+    copied and decoded on the card: equal to the channel-last batch rounded
+    to bfloat16 bit for bit, the categorical group, the mask groups and the
+    windows exact; (d) that decode equal to the CPU's. Printed: the
+    loader's seconds per batch channel-major against the channel-last
+    stack (two of each, in turns)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from forest_tpu_torch.data.loader import make_device_put
+    from forest_tpu_torch.data.wire import (decode_wire_batch,
+                                            encode_wire_batch, to_bfloat16,
+                                            wire_bytes)
+    from forest_tpu_torch.training import train_representation as tr
+    from forest_tpu_torch.training.representation import loops
+    from forest_tpu_torch.training.representation import step as step_mod
+    from forest_tpu_torch.training.representation.training_config import (
+        parse_training_config)
+
+    cfg = parse_training_config(str(tmp / "training.yaml"))
+    model_cfg = yaml.safe_load(
+        (ROOT / "configs/frl_repr_model_v1.yaml").read_text())
+    epochs = {}
+    for wire in (True, False):
+        ctx = tr.setup(cfg, str(tmp / "bindings.yaml"), model_cfg, device)
+        weights = {k: torch.full((), float(v), device=device)
+                   for k, v in ctx["weights"].items()}
+        cur = {"input_dropout_rate": torch.full((), 0.0, device=device),
+               "min_gate": torch.full((), 1.0, device=device)}
+        skip = step_mod.wire_exact_groups(ctx["step_cfg"])
+        reset_launches()
+        _, m = loops.train_epoch(
+            ctx["ds_train"], ctx["train_step"], ctx["state"],
+            batch_size=cfg.epoch.batch_size, weights=weights,
+            curriculum=cur, rng_seed=cfg.seed,
+            num_workers=cfg.hardware.num_workers,
+            max_batches=WIRE_FRL_BATCHES, device=device, wire_compact=wire,
+            wire_skip=skip)
+        _sync(device)
+        epochs[wire] = {"metrics": m, "launches": read_launches()}
+    on, off = epochs[True], epochs[False]
+    n = on["metrics"]["n_steps"]
+    rel = _rel(on["metrics"]["loss_total"], off["metrics"]["loss_total"])
+    losses = {k: _rel(v, off["metrics"][k])
+              for k, v in on["metrics"].items()
+              if k.startswith("loss_") and abs(off["metrics"][k]) > 1e-6}
+    problems = []
+    if rel > WIRE_LOSS_REL_BOUND or not np.isfinite(rel):
+        problems.append(f"loss_total {rel:.3g} from the plain epoch's")
+    if n != WIRE_FRL_BATCHES or any(
+            on["launches"][k] < _launches_want(n, device)
+            for k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")):
+        problems.append(f"{n} steps launched {on['launches']}")
+
+    ds = ctx["ds_train"]
+    idx = [i % len(ds) for i in range(cfg.epoch.batch_size)]
+    load_s = {"channel_last": [], "channel_major": []}
+    batches = {}
+    for layout in ("channel_last", "channel_major", "channel_major",
+                   "channel_last"):
+        ds.set_wire_layout(layout == "channel_major")
+        t0 = time.perf_counter()
+        batches[layout] = ds.load_batch(idx)
+        load_s[layout].append(time.perf_counter() - t0)
+    ds.set_wire_layout(False)
+    plain = batches["channel_last"]
+    enc = encode_wire_batch(batches["channel_major"], skip=skip)
+    dec = decode_wire_batch(make_device_put(device, ())(enc), device)
+    inexact = []
+    for k, v in plain.items():
+        exact = (k in skip or "categorical" in k or k.endswith("_mask")
+                 or k == "__window__")
+        want = v if exact else to_bfloat16(v).float().numpy()
+        if not (dec[k].is_contiguous()
+                and _same_bits(dec[k].cpu(), want)):
+            inexact.append(k)
+    if inexact or sorted(dec) != sorted(plain):
+        problems.append(f"decoded channel-major groups {inexact} differ "
+                        f"from the channel-last batch")
+    if problems:
+        raise AssertionError(f"wire FRL epoch: {problems}")
+    return {"n_steps": n, "loss_total_rel": rel, "loss_rel": losses,
+            "launches": {k: on["launches"][k] for k in (
+                "bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")},
+            "epoch_s": {"wire": on["metrics"]["epoch_time_s"],
+                        "plain": off["metrics"]["epoch_time_s"]},
+            "wait_s": {"wire": on["metrics"]["wait_s"],
+                       "plain": off["metrics"]["wait_s"]},
+            "load_batch_s": load_s,
+            "bytes_per_batch": {"plain": wire_bytes(plain),
+                                "wire": wire_bytes(enc)},
+            "decode_leaves_card_vs_cpu": decode_card_vs_cpu(enc, device)}
+
+
+def ladder_and_check(work: Path, device: str = "cuda") -> dict:
+    """(c) configs/vae_evt_only.yaml, vae_static_only.yaml and vae_full.yaml
+    at their full widths, each on a 256² cube of its sources (LADDER), one
+    CLI epoch of LADDER_STEPS: every metric finite, K4 once a train and a
+    validation step."""
+    import numpy as np
+    import yaml
+
+    from forest_tpu_torch.data.cube import build_synthetic_cube
+
+    res = {}
+    for name, cube_kw in LADDER.items():
+        stem = name.split(".")[0]
+        zarr = work / f"{stem}.zarr"
+        build_synthetic_cube(zarr, height=256, width=256, seed=SEED,
+                             **cube_kw)
+        config = yaml.safe_load((ROOT / "configs" / name).read_text())[
+            "train_vqvae"]
+        r = _vq_cli(zarr, work / stem, config, LADDER_STEPS, device)
+        bad = [k for k, v in _metrics(r["history"]).items()
+               if not np.isfinite(v)]
+        if bad or r["launches"] != _launches_want(
+                LADDER_STEPS + r["val_steps"], device):
+            raise AssertionError(
+                f"{name}: non-finite {bad}; {LADDER_STEPS} train and "
+                f"{r['val_steps']} validation steps launched vq_core "
+                f"{r['launches']} times")
+        res[stem] = {"seconds": r["seconds"], "launches": r["launches"],
+                     "val_steps": r["val_steps"],
+                     "train_loss_total": r["history"]["train/loss_total"],
+                     "val_loss_total": r["history"]["val/loss_total"],
+                     "ms_per_step": 1e3 * r["history"]["step_s"]
+                     / LADDER_STEPS,
+                     "widths": {k: config[k] for k in (
+                         "emb_dim", "hidden", "codebook_size")}}
+    return res
+
+
+def wire_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 20 on phase 14's cube, stats and configs in ``tmp``: (a) and
+    (d) wire_vqvae_and_check, (b) wire_frl_and_check, (c)
+    ladder_and_check."""
+    t_start = time.perf_counter()
+    work = tmp / "wire"
+    work.mkdir()
+    res = {"vqvae": wire_vqvae_and_check(work, device),
+           "frl": wire_frl_and_check(tmp, device),
+           "ladder": ladder_and_check(work, device)}
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
 def vq_paths(vqvae_training: int = 0, kernel_check: int = 0,
              variant_sweep: int = 0) -> dict:
     """Launches of a VQ kernel by path: the VQ-VAE's CLI run, the op called
@@ -4591,7 +4962,10 @@ def main() -> int:
         log(f"cube building: {json.dumps(cube, default=float)}")
         torch.cuda.empty_cache()
         dpar = data_parallel_and_check(Path(d))               # phase 19
-    log(f"data parallel: {json.dumps(dpar, default=float)}")
+        log(f"data parallel: {json.dumps(dpar, default=float)}")
+        torch.cuda.empty_cache()
+        wire = wire_and_check(Path(d))                        # phase 20
+    log(f"wire, blocks and ladder: {json.dumps(wire, default=float)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -4784,6 +5158,36 @@ def main() -> int:
         f"({g2['frl']['allreduce_mb']:.2f} MB, one buffer): gloo with two "
         f"ranks on one card {g2['frl']['gloo_allreduce_ms']:.3f} ms, NCCL "
         f"world 1 {w1['allreduce']['ms']:.3f} ms ({card})")
+    wv, wf, wl = wire["vqvae"], wire["frl"], wire["ladder"]
+    log(f"compact wire in {wire['seconds']:.2f} s: VQ-VAE "
+        f"(configs/vae_v0.yaml, batch 64) H2D bytes per batch plain "
+        f"{wv['bytes_per_batch']['plain']}, wire "
+        f"{wv['bytes_per_batch']['wire']}; ms per step in the CLI plain "
+        f"{wv['runs']['plain']['ms_per_step']:.2f}, wire "
+        f"{wv['runs']['wire']['ms_per_step']:.2f}, wire with "
+        f"steps_per_dispatch {WIRE_VQ_BLOCK} (run one step at a time) "
+        f"{wv['runs']['block']['ms_per_step']:.2f}, equal to the wire run "
+        f"bit for bit; the wire "
+        f"{max(wv['wire_vs_plain_rel'].values()):.3g} from plain; FRL v1 "
+        f"epoch of {wf['n_steps']} steps with the wire "
+        f"{wf['epoch_s']['wire']:.2f} s against "
+        f"{wf['epoch_s']['plain']:.2f} s plain (loader wait "
+        f"{wf['wait_s']['wire']:.2f} / {wf['wait_s']['plain']:.2f} s), "
+        f"loss_total {wf['loss_total_rel']:.3g} from plain, H2D bytes per "
+        f"batch {wf['bytes_per_batch']['plain']} plain, "
+        f"{wf['bytes_per_batch']['wire']} wire; the loader's s per batch "
+        f"of {TRAIN_SHAPE[0]}: channel-major "
+        + ", ".join(f"{x:.3f}" for x in wf["load_batch_s"]["channel_major"])
+        + ", channel-last stack "
+        + ", ".join(f"{x:.3f}" for x in wf["load_batch_s"]["channel_last"])
+        + f"; decode on the card equal to the CPU's on "
+        f"{wv['decode_leaves_card_vs_cpu']} + "
+        f"{wf['decode_leaves_card_vs_cpu']} leaves ({card})")
+    log("VQ-VAE ladder at full widths, " + "; ".join(
+        f"{k} {v['widths']}: {v['seconds']:.2f} s, "
+        f"{v['ms_per_step']:.2f} ms per step, train/loss_total "
+        f"{v['train_loss_total']:.4f}, K4 {v['launches']}"
+        for k, v in wl.items()) + f" ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [
@@ -4798,7 +5202,8 @@ def main() -> int:
                                          ("visualize",
                                           "phase_diagnostics")),
                       "cube_building": cube["k1"]["launches"],
-                      "data_parallel": g2["launches"]["bank_mix_fwd"]},
+                      "data_parallel": g2["launches"]["bank_mix_fwd"],
+                      "wire_frl": wf["launches"]["bank_mix_fwd"]},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],
@@ -4810,14 +5215,16 @@ def main() -> int:
         kernel_entry("bank_mix_bwd", bwd_bf16,
                      {"serving": 0, "training": steps["bank_mix_bwd"],
                       "training_cli": cli["launches"]["bank_mix_bwd"],
-                      "data_parallel": g2["launches"]["bank_mix_bwd"]},
+                      "data_parallel": g2["launches"]["bank_mix_bwd"],
+                      "wire_frl": wf["launches"]["bank_mix_bwd"]},
                      f32_ms=bwd_f32["ms"], f32_plain_ms=bwd_f32["plain_ms"],
                      f32_bound_ms=bwd_f32["bound_ms"],
                      f32_max_abs_err=bwd_f32["max_abs_err"]),
         kernel_entry("scatter_add_rows", scat,
                      {"serving": 0, "training": steps["scatter_add_rows"],
                       "training_cli": cli["launches"]["scatter_add_rows"],
-                      "data_parallel": g2["launches"]["scatter_add_rows"]},
+                      "data_parallel": g2["launches"]["scatter_add_rows"],
+                      "wire_frl": wf["launches"]["scatter_add_rows"]},
                      checked_ms=scat["checked_ms"],
                      back_to_back_ms=scat["back_to_back_ms"],
                      library_back_to_back_ms=scat[
@@ -4825,7 +5232,9 @@ def main() -> int:
         kernel_entry("vq_core", core, dict(vq_paths(
             vqvae_training=vqvae["launches"],
             kernel_check=core["path_launches"]),
-            data_parallel=g2["launches"]["vq_core"]),
+            data_parallel=g2["launches"]["vq_core"],
+            wire_vqvae=sum(r["launches"] for r in wv["runs"].values()),
+            ladder=sum(r["launches"] for r in wl.values())),
             with_qx_ms=core["with_qx_ms"], library_is=core["library_is"],
             idx_mismatch_rows=core["idx_mismatch_rows"],
             idx_mismatch_rows_vs_cpu=core["idx_mismatch_rows_vs_cpu"],
@@ -4867,8 +5276,9 @@ def main() -> int:
     idle += [f"{k['name']} on {path}" for k in kernels[:3]
              for path, n in k["launches_by_path"].items()
              if path != "serving" and n <= 0]
-    if kernels[3]["launches_by_path"]["data_parallel"] <= 0:
-        idle.append("vq_core on data_parallel")
+    idle += [f"vq_core on {path}" for path in
+             ("data_parallel", "wire_vqvae", "ladder")
+             if kernels[3]["launches_by_path"][path] <= 0]
     if idle or [k["name"] for k in kernels] != list(KERNELS):
         raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))

@@ -7,6 +7,8 @@ Port of ``forest_tpu/data/anchor_sampling.py``:
   +/- ``jitter_radius`` per sample;
 - :func:`sample_anchors_supplement`: ``n`` weighted draws without
   replacement from a weight map (Gumbel top-k);
+- :func:`sample_anchors_grid_plus_supplement`: both, the grid anchors
+  valid where their weight is positive;
 - :func:`resolve_weights`: product of mask maps, then an optional
   ``inverse-frequency`` transform over a values map with an optional
   whitelist;
@@ -110,6 +112,31 @@ def sample_anchors_supplement(weights: torch.Tensor, n: int, *,
     return torch.stack([idx // w, idx % w], dim=-1), valid
 
 
+def sample_anchors_grid_plus_supplement(
+        weights: torch.Tensor, stride: int = 16, exclude_border: int = 16,
+        jitter_radius: int = 4, n_supplement: int = 104, *,
+        jitter: Optional[torch.Tensor] = None,
+        supplement_u: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The jittered grid plus a weighted supplement: weights [B, H, W] ->
+    (coords [B, G + S, 2], valid [B, G + S]); a grid anchor is valid where
+    its weight is positive. ``jitter`` [B, 2] and ``supplement_u`` [B, H*W]
+    are the raw draws, else drawn from ``generator``."""
+    bsz, h, w = weights.shape
+    if jitter is None:
+        jitter = draw_grid_jitter(bsz, jitter_radius, generator,
+                                  weights.device)
+    grid = sample_anchors_grid(h, w, jitter.to(weights.device), stride,
+                               exclude_border)
+    bidx = torch.arange(bsz, device=weights.device)[:, None]
+    gvalid = weights[bidx, grid[..., 0], grid[..., 1]] > 0
+    supp, svalid = sample_anchors_supplement(
+        weights, n_supplement, u=supplement_u, generator=generator)
+    return (torch.cat([grid, supp], dim=1),
+            torch.cat([gvalid, svalid], dim=1))
+
+
 @dataclass
 class AnchorSamplerConfig:
     strategy: str = "grid-plus-supplement"   # 'grid' | 'grid-plus-supplement'
@@ -159,19 +186,18 @@ class AnchorSampler:
         values = grids.get(c.weight_values) if c.weight_values else None
         weights = resolve_weights(masks, values, c.weight_transform,
                                   c.valid_values)
+        if c.strategy == "grid-plus-supplement":
+            return sample_anchors_grid_plus_supplement(
+                weights, c.stride, c.exclude_border, c.jitter_radius,
+                c.n_supplement, jitter=jitter, supplement_u=supplement_u,
+                generator=generator)
         if jitter is None:
             jitter = draw_grid_jitter(batch, c.jitter_radius, generator,
                                       device)
         grid = sample_anchors_grid(h, w, jitter.to(device), c.stride,
                                    c.exclude_border)
         bidx = torch.arange(batch, device=device)[:, None]
-        gvalid = weights[bidx, grid[..., 0], grid[..., 1]] > 0
-        if c.strategy == "grid":
-            return grid, gvalid
-        supp, svalid = sample_anchors_supplement(
-            weights, c.n_supplement, u=supplement_u, generator=generator)
-        return (torch.cat([grid, supp], dim=1),
-                torch.cat([gvalid, svalid], dim=1))
+        return grid, weights[bidx, grid[..., 0], grid[..., 1]] > 0
 
 
 def build_anchor_sampler(spec: Dict) -> AnchorSampler:
@@ -198,6 +224,7 @@ def build_anchor_sampler(spec: Dict) -> AnchorSampler:
 
 
 __all__ = ["sample_anchors_grid", "sample_anchors_supplement",
-           "draw_grid_jitter", "resolve_weights", "AnchorSampler",
-           "AnchorSamplerConfig", "build_anchor_sampler",
+           "sample_anchors_grid_plus_supplement", "draw_grid_jitter",
+           "resolve_weights", "AnchorSampler", "AnchorSamplerConfig",
+           "build_anchor_sampler",
            "grid_anchor_count"]

@@ -51,6 +51,7 @@ class ForestDatasetV2:
         self.sample_number = sample_number
         self.min_aoi = min_aoi
         self.rng = np.random.default_rng(seed)
+        self._channel_major = False     # set_wire_layout
 
         years = self.root.attrs.get("time_coords", [])
         self.years = np.asarray(years, np.int64)
@@ -230,12 +231,40 @@ class ForestDatasetV2:
 
     __getitem__ = get_patch
 
+    def set_wire_layout(self, enabled: bool) -> None:
+        """Switch :meth:`load_batch` to channel-major assembly for the
+        compact wire (``data.wire``): each group is then emitted as
+        [B, C, (T,) H, W] under ``<name>__cm``, every source channel written
+        into the batch buffer with one contiguous copy, where the
+        channel-last ``np.stack`` writes 4-byte elements C apart.
+        ``decode_wire_batch`` restores channel-last on the device.
+        :meth:`get_patch` and the default collate keep channel-last."""
+        self._channel_major = bool(enabled)
+
     def load_batch(self, indices) -> Dict[str, np.ndarray]:
-        """Stack patches [B, ...] per group (the collate contract). The
-        JAX package's channel-major assembly for its compact H2D wire is
-        not ported: the port ports no wire."""
-        items = [self.get_patch(int(i)) for i in np.atleast_1d(indices)]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+        """Stack patches [B, ...] per group (the collate contract); with the
+        wire layout on, assemble channel-major (:meth:`set_wire_layout`)."""
+        idx = [int(i) for i in np.atleast_1d(indices)]
+        if not self._channel_major:
+            items = [self.get_patch(i) for i in idx]
+            return {k: np.stack([it[k] for it in items]) for k in items[0]}
+        p = self.patch_size
+        wins = [self.patches[self._current_indices[i]] for i in idx]
+        out: Dict[str, np.ndarray] = {}
+        for name, g in self.bindings.dataset.items():
+            c = len(g.channels)
+            shape = ((len(idx), c, self.num_timesteps, p, p) if g.temporal
+                     else (len(idx), c, p, p))
+            # zeros: the boundary-pad contract of ragged edge patches
+            buf = np.zeros(shape, np.float32)
+            for bi, win in enumerate(wins):
+                for ci, ch in enumerate(g.channels):
+                    buf[bi, ci, ..., :win.height, :win.width] = \
+                        self._load_source_channel(ch, g.temporal, win)
+            out[name + "__cm"] = buf
+        out["__window__"] = np.asarray(
+            [[w.row_start, w.col_start] for w in wins], np.int64)
+        return out
 
 
 __all__ = ["ForestDatasetV2"]

@@ -124,10 +124,12 @@ class PrefetchLoader:
 
 
 def to_device(array, device) -> "torch.Tensor":
-    """One host array -> a tensor on ``device``: through pinned memory and a
+    """One host array, or a CPU tensor (the compact wire's bfloat16 leaves,
+    ``data.wire``), -> a tensor on ``device``: through pinned memory and a
     non-blocking copy onto a CUDA device, as it is for the CPU."""
     import torch
-    t = torch.from_numpy(np.ascontiguousarray(array))
+    t = array.contiguous() if isinstance(array, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(array))
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t

@@ -74,6 +74,12 @@ _REGISTRY: Dict[str, Transform] = {t.name: t for t in (
 )}
 
 
+def register(t: Transform) -> None:
+    """Add (or replace) a named transform; :func:`get_transform` then
+    finds it by name."""
+    _REGISTRY[t.name] = t
+
+
 def get_transform(spec: TransformSpec) -> Transform:
     name, params = parse_transform_spec(spec)
     if name is None:
@@ -101,4 +107,4 @@ def apply_transform(spec: TransformSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["Transform", "TransformSpec", "get_transform", "apply_transform",
-           "parse_transform_spec", "LOG_DEFAULT_EPSILON"]
+           "parse_transform_spec", "register", "LOG_DEFAULT_EPSILON"]

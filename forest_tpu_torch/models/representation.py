@@ -157,7 +157,10 @@ def init_parameters(model: RepresentationModel,
     """Random weights as flax initialises them: conv / dense kernels
     N(0, 1/fan_in) (LeCun normal, untruncated), zero biases, unit GroupNorm
     and LayerNorm scales; FiLM output layers N(0, 0.01^2) with gamma bias
-    1, beta bias 0.
+    1, beta bias 0. The counterpart of the JAX package's
+    ``init_variables`` (``forest_tpu/models/representation.py``), which
+    initialises every subtree in one pass too, from a ``jax.random`` key:
+    a seed here does not give the JAX weights.
     ``generator`` is a CPU generator, so a seed gives the same weights on
     every device."""
     film_out = {model.phase_film.gamma_1: 1.0, model.phase_film.beta_1: 0.0}

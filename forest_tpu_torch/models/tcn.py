@@ -6,9 +6,10 @@ gate = sigmoid(1x1 conv(h)) and out = gate * relu(h) + (1 - gate) * res,
 where res is x, 1x1-projected when the width changes. TCNEncoder stacks
 blocks and pools with 'none' or 'stats' (masked mean and std over time).
 
-TCNEncoder takes the JAX layout [N, T, C] (pixel series; the spatial
-[B, T, H, W, C] form is not ported: RepresentationModel flattens pixels
-itself); the blocks work on torch's Conv1d layout [N, C, T] so the stack
+TCNEncoder takes the JAX layouts: pixel series [N, T, C], or the spatial
+form [B, T, H, W, C] (mask [B, T, H, W]), whose pixels are folded into the
+series axis in (b, h, w) order and unfolded after, as the JAX module does;
+the blocks work on torch's Conv1d layout [N, C, T] so the stack
 transposes once.
 
 Dropout (training only, ``dropout_rate`` > 0): at each block's input, flax's
@@ -96,9 +97,20 @@ class TCNEncoder(nn.Module):
                 draws: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> torch.Tensor:
         """x [N, T, C]; mask [N, T] (stats pooling only) -> [N, T, C_out]
-        ('none') or [N, 2 C_out] ('stats': mean and std over time).
+        ('none') or [N, 2 C_out] ('stats': mean and std over time). The
+        spatial form x [B, T, H, W, C], mask [B, T, H, W] -> [B, T, H, W,
+        C_out] or [B, H, W, 2 C_out], over N = B*H*W series.
         ``deterministic=False`` turns the blocks' dropout on with
         ``draws`` (:meth:`draw`'s layout), which it then requires."""
+        if x.ndim == 5:
+            b, t, h, w, c = x.shape
+            flat = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+            if mask is not None:
+                mask = mask.permute(0, 2, 3, 1).reshape(b * h * w, t)
+            y = self(flat, mask, deterministic=deterministic, draws=draws)
+            if self.pooling == "stats":
+                return y.reshape(b, h, w, -1)
+            return y.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4)
         if deterministic or self.dropout_rate <= 0.0:
             draws = (None,) * self.n_blocks
         elif draws is None:

@@ -19,9 +19,17 @@ What belongs to PyTorch:
 - metrics stay on the device and drain every ``_METRIC_SYNC_STEPS`` steps
   in one stacked copy to the host, so the loop adds no host
   synchronisation to a step's own;
-- no compact wire and no wire layout (neither is ported): the dataset is
-  never switched to another collate, and the loader is closed in
-  ``finally``, so no prefetch worker outlives the epoch;
+- ``wire_compact=True`` puts the compact wire (``data.wire``) on the
+  batches: the loader's consumer thread encodes each batch (floats to
+  bfloat16 but the groups of ``wire_skip`` and the "categorical" ones)
+  before its pinned copy, and the steps decode it on the device. It is
+  off by default (the JAX loop turns it on only on a TPU), and no CLI of
+  the port sets it: only the tests and ``chip_smoke.py`` turn it on.
+  With the wire on in one process, the dataset assembles its batches
+  channel-major (``set_wire_layout``) for the epoch; the layout is reset
+  in ``finally`` after the loader is closed, so no prefetch worker still
+  running sees the switch. Under several ranks the wire stays off, as in
+  the JAX package;
 - data parallel (``mesh`` of ``parallel.make_mesh`` with a group): every
   rank builds the same global index lists and loads only its rows
   ``[rank * B / W, (rank + 1) * B / W)`` of each, with its slice of the
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from forest_tpu_torch.data.loader import PrefetchLoader, make_device_put
+from forest_tpu_torch.data.wire import encode_wire_batch
 from forest_tpu_torch.parallel.mesh import local_rows
 
 # metric dicts drain device -> host in blocks of this many steps
@@ -66,15 +75,26 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
               curriculum: Dict[str, Any], rng_seed: int,
               train: bool, num_workers: int = 4,
               max_batches: Optional[int] = None, device="cuda",
-              mesh=None):
+              mesh=None, wire_compact: bool = False,
+              wire_skip: tuple = ()):
     """Returns (state_or_params, mean-metrics dict incl. timing).
 
     ``step_fn`` is ``train_step.make_train_step``'s (``train``) or
     ``make_eval_step``'s function, or their data-parallel forms when
     ``mesh`` has several ranks; ``weights`` / ``curriculum`` are passed to
-    it as given (the CLI makes them device scalars once per epoch)."""
+    it as given (the CLI makes them device scalars once per epoch).
+    ``wire_compact`` / ``wire_skip``: the compact wire (module
+    docstring)."""
     device = torch.device(device)
     rows = local_rows(batch_size, mesh)     # raises if B % world
+    wire = wire_compact and (mesh is None or mesh.world_size == 1)
+    put = make_device_put(device, keep_host_keys=())
+    if wire:
+        def device_put(batch):
+            return put(encode_wire_batch(batch, skip=wire_skip))
+    else:
+        device_put = put
+    layout = wire and hasattr(dataset, "set_wire_layout")
     dataset.on_epoch_start()
     n = len(dataset)
     idx_batches = [list(range(i, min(i + batch_size, n)))
@@ -85,10 +105,12 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
         idx_batches = idx_batches[:max_batches]
         valid_counts = valid_counts[:max_batches]
 
+    if layout:
+        dataset.set_wire_layout(True)
     loader = PrefetchLoader(
         _Batches(dataset, idx_batches, valid_counts, batch_size, rows),
         iter(range(len(idx_batches))), num_workers=num_workers,
-        device_put=make_device_put(device, keep_host_keys=()))
+        device_put=device_put)
     try:
         return _run_epoch_loop(loader, step_fn, state_or_params,
                                weights=weights, curriculum=curriculum,
@@ -96,6 +118,8 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
                                valid_counts=valid_counts, device=device)
     finally:
         loader.close()
+        if layout:
+            dataset.set_wire_layout(False)
 
 
 class _Batches:

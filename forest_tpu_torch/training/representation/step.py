@@ -128,6 +128,17 @@ class StepConfig:
     evt_min_valid_anchors: int = 4
 
 
+def wire_exact_groups(cfg: StepConfig) -> tuple:
+    """Batch groups this step compares by exact value, which must never
+    ride the compact wire's bfloat16 (``data.wire``): EVT codes 7000+ are
+    not exact in bfloat16, and a rounded code merges or splits classes in
+    the soft-neighbourhood grouping. The group's name comes from the
+    configuration (``losses.evt.feature``), so the wire's name-based
+    "categorical" rule is not enough; ``run_epoch(wire_skip=...)`` takes
+    this set. ysfc values are small integers, exact in bfloat16."""
+    return (cfg.evt_feature.split(".")[0],) if cfg.evt_enabled else ()
+
+
 DEFAULT_WEIGHTS = {
     "spatial_infonce": 1.0,
     "spectral_infonce": 1.0,
@@ -577,6 +588,8 @@ def make_process_batch(model, feature_builder: FeatureBuilder,
         metrics["loss_total"] = total
         return total, {k: v.detach() for k, v in metrics.items()}
 
+    # the train and eval steps hold their batches to this device
+    process_batch.device = device
     return process_batch
 
 
@@ -601,4 +614,4 @@ def build_evt_tables(metric) -> Dict[str, np.ndarray]:
 
 __all__ = ["StepConfig", "StepDraws", "draw_step_randoms",
            "make_process_batch", "build_evt_tables", "DEFAULT_WEIGHTS",
-           "NEG_POOL_SIZE", "frobenius_type_leakage"]
+           "NEG_POOL_SIZE", "frobenius_type_leakage", "wire_exact_groups"]

@@ -22,8 +22,10 @@ the ranks in one all-reduce, the metrics synced (counts summed, the rest
 averaged), and the non-finite test reads the averaged loss and gradient
 norm, so every rank takes the same skip decision.
 
-Not here: the JAX package's microbatched gradient accumulation (it exists
-for a TPU kernel's batch limit) and its compact-wire batch decoding.
+Both steps decode a compact-wire batch first (``data.wire.
+decode_wire_batch``, the identity on a plain batch); a batch on another
+device than the model's raises. Not here: the JAX package's microbatched
+gradient accumulation (it exists for a TPU kernel's batch limit).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from forest_tpu_torch.data.wire import decode_wire_batch
 from forest_tpu_torch.parallel import dp
 from forest_tpu_torch.utils import flax_bridge
 
@@ -159,6 +162,7 @@ def make_train_step(process_batch: Callable, optimizer: AdamW,
     def train_step(state: FRLTrainState, batch, generator, weights,
                    curriculum, draws=None):
         names, params = zip(*state.model.named_parameters())
+        batch = decode_wire_batch(batch, params[0].device)
         loss, metrics = process_batch(batch, generator, weights, curriculum,
                                       True, draws)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -185,6 +189,8 @@ def make_train_step(process_batch: Callable, optimizer: AdamW,
 def make_eval_step(process_batch: Callable, group=None) -> Callable:
     def eval_step(batch, generator, weights, curriculum,
                   draws: Optional[object] = None):
+        batch = decode_wire_batch(batch, getattr(process_batch, "device",
+                                                 None))
         with torch.no_grad():
             _, metrics = process_batch(batch, generator, weights,
                                        curriculum, False, draws)

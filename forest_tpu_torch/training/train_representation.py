@@ -340,6 +340,9 @@ def train(cfg: TrainingConfiguration,
 
     cur = ctx["curricula"]
     base_weights = ctx["weights"]
+    # the groups the step compares by exact value (EVT codes): the compact
+    # wire never rounds them, whatever the YAML named them
+    wire_skip = step_mod.wire_exact_groups(ctx["step_cfg"])
     model = ctx["model"]
     extra_meta = {"model_version": rep.VERSION,
                   "model_config": rep.model_config_dict(model),
@@ -380,7 +383,8 @@ def train(cfg: TrainingConfiguration,
                 batch_size=cfg.epoch.batch_size, weights=weights,
                 curriculum=curriculum, rng_seed=cfg.seed + epoch,
                 num_workers=cfg.hardware.num_workers,
-                max_batches=max_batches, device=device, mesh=mesh)
+                max_batches=max_batches, device=device, mesh=mesh,
+                wire_skip=wire_skip)
 
         val_m = None
         if val_every and epoch % val_every == 0:
@@ -392,7 +396,7 @@ def train(cfg: TrainingConfiguration,
                 rng_seed=1_000_000 + epoch,
                 num_workers=cfg.hardware.num_workers,
                 max_batches=val_cfg.get("max_batches", max_batches),
-                device=device, mesh=mesh)
+                device=device, mesh=mesh, wire_skip=wire_skip)
 
         # the logged rate is the schedule at the step count (skipped steps
         # included), as the JAX CLI logs it

@@ -31,9 +31,14 @@ schema, checkpoints and ``history.json``, each write followed by a
 barrier. ``data_parallel: true`` with several cards visible to one process
 and no process group raises with the ``torchrun`` command to use.
 
-Not ported, and refused rather than ignored: ``steps_per_dispatch > 1``
-(the K-steps-per-dispatch scan exists for a TPU relay) and ``wire_compact:
-true`` (the bf16 / bit-packed H2D wire).
+``wire_compact: true`` puts the compact wire (``data.wire``: bfloat16
+floats, bit-packed masks, ids narrowed by the schema's bounds) on the
+batches' copies to the device; unset, it is off (the JAX CLI turns it on
+only on a TPU), and under several ranks it stays off, as in the JAX CLI.
+``steps_per_dispatch: K`` is accepted and logged, and the port runs one
+step at a time: a block of K steps (``vqvae_step.make_scan_train_step``)
+gives the same result bit for bit and saves only the pinned copies of K-1
+batches, which on an H100 moved no step time (PERF.md).
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ from forest_tpu_torch.data.cube import LegacyCube
 from forest_tpu_torch.data.loader import PrefetchLoader, make_device_put
 from forest_tpu_torch.data.samplers import ChunkBatchSampler
 from forest_tpu_torch.data.schema import build_and_save_schema
-from forest_tpu_torch.data.vqvae_dataset import VQVAEDataset
+from forest_tpu_torch.data.vqvae_dataset import IGNORE_INDEX, VQVAEDataset
+from forest_tpu_torch.data.wire import encode_wire_batch
 from forest_tpu_torch.models.vqvae import (VQVAE, init_parameters,
                                            model_config_dict)
 from forest_tpu_torch.parallel import dp, hosts
@@ -116,25 +122,33 @@ def build_vq_annealer(cfg: Dict[str, Any]):
         + int(cfg.get("anneal_vq_warmup", 1))}})
 
 
-def host_to_device_batch(batch: Dict[str, Any],
-                         device="cuda") -> Dict[str, Any]:
+def wire_int_bounds(ds: VQVAEDataset) -> Dict[str, Any]:
+    """The schema's value bounds of the id arrays, for the compact wire:
+    the merged ``cat`` block is bounded by the largest ``num_ids``, each
+    ``cat_target`` array also carries IGNORE_INDEX (-100). A feature named
+    "cat" shares the merged block's key (the wire matches keys at any
+    level), so that entry holds both arrays' union."""
+    vocab = {n: int(ds.schema_cat[n]["num_ids"]) for n in ds.cat_names}
+    if not vocab:
+        return {}
+    bounds: Dict[str, Any] = {n: (IGNORE_INDEX, v) for n, v in vocab.items()}
+    bounds["cat"] = ((IGNORE_INDEX, max(vocab.values()))
+                     if "cat" in vocab else max(vocab.values()))
+    return bounds
+
+
+def host_to_device_batch(batch: Dict[str, Any], device="cuda",
+                         wire: bool = False,
+                         int_bounds: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, Any]:
     """Drop the host-only keys (``years``, ``yx``); the rest become tensors
-    on ``device`` (pinned memory and a non-blocking copy onto a card)."""
-    return make_device_put(device, keep_host_keys=())(
-        {k: v for k, v in batch.items() if k not in ("years", "yx")})
-
-
-def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    if int(cfg.get("steps_per_dispatch") or 1) > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 (make_scan_train_step) is not ported: "
-            "it amortises a TPU relay's per-dispatch cost (ROADMAP, 'Not "
-            "ported')")
-    if cfg.get("wire_compact"):
-        raise NotImplementedError(
-            "wire_compact (the bf16 / bit-packed H2D wire of data/wire.py) "
-            "is not ported (ROADMAP queue 3: only if H2D shows in a "
-            "profile)")
+    on ``device`` (pinned memory and a non-blocking copy onto a card).
+    ``wire`` encodes the batch for the compact wire first; the steps
+    decode it."""
+    batch = {k: v for k, v in batch.items() if k not in ("years", "yx")}
+    if wire:
+        batch = encode_wire_batch(batch, int_bounds=int_bounds)
+    return make_device_put(device, keep_host_keys=())(batch)
 
 
 def _lockstep_cap(xy_by_chunk, batch_size: int, drop_last: bool,
@@ -157,7 +171,6 @@ def _lockstep_cap(xy_by_chunk, batch_size: int, drop_last: bool,
 
 
 def train(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    _refuse_unported(cfg)
     t_setup = time.perf_counter()
     mesh = hosts.training_mesh(cfg.get("device", "cuda"),
                                bool(cfg.get("data_parallel")),
@@ -216,6 +229,17 @@ def train(cfg: Dict[str, Any]) -> Dict[str, Any]:
                  mesh.world_size, mesh.rank, device)
     train_step = dp.make_dp_train_step(model, opt, mesh, class_weights)
     eval_step = dp.make_dp_eval_step(model, mesh, class_weights)
+    # the compact wire: off unless the YAML asks for it, and in one process
+    use_wire = bool(cfg.get("wire_compact")) and mesh.world_size == 1
+    wire_bounds = wire_int_bounds(ds_tr) if use_wire else None
+    if use_wire:
+        log.info("compact wire on (bfloat16 floats, packed masks, narrow "
+                 "ids: %s)", wire_bounds)
+    spd = int(cfg.get("steps_per_dispatch") or 1)
+    if spd > 1:
+        log.warning("steps_per_dispatch=%d ignored: %s one step at a time",
+                    spd, f"{mesh.world_size} data-parallel ranks run"
+                    if mesh.world_size > 1 else "the port runs")
     tr_cap = _lockstep_cap(ds_tr.xy_by_chunk, cfg["batch_size"],
                            cfg["drop_last"], mesh)
     va_cap = _lockstep_cap(ds_va.xy_by_chunk, cfg["batch_size"], True, mesh)
@@ -274,7 +298,7 @@ def train(cfg: Dict[str, Any]) -> Dict[str, Any]:
             wait_t += time.perf_counter() - t_wait
             t_step = time.perf_counter()
             w = annealer(global_step)
-            db = host_to_device_batch(batch, device)
+            db = host_to_device_batch(batch, device, use_wire, wire_bounds)
             state, m = train_step(state, db, w)
             global_step += 1
             n_steps += 1
@@ -304,7 +328,8 @@ def train(cfg: Dict[str, Any]) -> Dict[str, Any]:
         va_loader = PrefetchLoader(ds_va, va_sampler,
                                    num_workers=cfg["num_workers"])
         for batch in va_loader:
-            m = eval_step(host_to_device_batch(batch, device), w)
+            m = eval_step(host_to_device_batch(batch, device, use_wire,
+                                               wire_bounds), w)
             keys = list(m)
             for k, v in zip(keys, torch.stack(
                     [m[k].float() for k in keys]).tolist()):

@@ -18,8 +18,14 @@ its own rows and the JAX step's ``axis_name`` reductions are written out:
 gradients averaged before the update, the EMA counts and sums summed,
 the reseed candidates gathered from every rank (the same ``pick`` or
 generator seed on every rank), the cumulative code usage summed when the
-quantiser is not EMA, every metric averaged. Not here: the compact-wire
-batch decoding and the K-steps-per-dispatch scan.
+quantiser is not EMA, every metric averaged.
+
+Both steps decode a compact-wire batch first (``data.wire.
+decode_wire_batch``, the identity on a plain batch); a batch on another
+device than the model's raises. :func:`make_scan_train_step` runs a block
+of K steps, stacked on a leading axis, as K sequential steps; the CLI
+(``train_vqvae``) runs one step at a time whatever ``steps_per_dispatch``
+says.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from forest_tpu_torch.data.wire import decode_wire_batch
 from forest_tpu_torch.losses.categorical import (IGNORE_INDEX,
                                                  categorical_loss)
 from forest_tpu_torch.losses.reconstruction import reconstruction_loss
@@ -155,6 +162,7 @@ def make_train_step(model: VQVAE, optimizer: AdamW,
                    generator: Optional[torch.Generator] = None,
                    pick: Optional[torch.Tensor] = None):
         names, params = zip(*model.named_parameters())
+        batch = decode_wire_batch(batch, params[0].device)
         out = model(batch)
         total, metrics = vqvae_loss(out, batch, cw, loss_weights)
         grads = torch.autograd.grad(total, params, allow_unused=True)
@@ -189,6 +197,53 @@ def make_train_step(model: VQVAE, optimizer: AdamW,
     return train_step
 
 
+def make_scan_train_step(train_step: Callable) -> Callable:
+    """Wrap ``train_step(state, batch, loss_weights, generator=None,
+    pick=None)`` into ``multi_step(state, stacked_batch, stacked_weights,
+    draws=None) -> (state, metrics)``, which runs the K slices of a block
+    (every leaf of ``stacked_batch`` has a leading K axis, as
+    ``data.wire.stack_batches`` makes it) as K sequential ``train_step``
+    calls. ``stacked_weights`` maps
+    each loss weight to its K per-step values; the metrics come back with a
+    leading K axis.
+
+    The result is bit for bit that of the K separate calls on the same
+    slices, weights and reseed draws. ``draws`` is one of: None (each step
+    draws as ``train_step`` does without a generator); a
+    ``torch.Generator``, which step k draws from after steps 0..k-1, so a
+    block starting at global step g draws what the sequential loop with
+    that generator draws at steps g..g+K-1; or the raw reseed draws
+    ``pick`` [K, codebook_size], one row a step. This differs from the JAX
+    package, whose block keys its reseed as ``split(key(g), K)`` where its
+    plain loop uses ``key(g)``, ``key(g + 1)``, ...: only the dead-code
+    reseed's draw depends on it."""
+    def multi_step(state, stacked_batch: Dict[str, Any],
+                   stacked_weights: Dict[str, Any], draws=None):
+        leaves = [v for v in stacked_batch.values()
+                  if not isinstance(v, dict)]
+        k = leaves[0].shape[0]
+        weights = {n: [float(x) for x in
+                       (v.tolist() if isinstance(v, torch.Tensor) else v)]
+                   for n, v in stacked_weights.items()}
+        per_step = []
+        for i in range(k):
+            batch = {n: ({m: a[i] for m, a in v.items()}
+                         if isinstance(v, dict) else v[i])
+                     for n, v in stacked_batch.items()}
+            w = {n: v[i] for n, v in weights.items()}
+            if isinstance(draws, torch.Generator):
+                state, m = train_step(state, batch, w, generator=draws)
+            else:
+                state, m = train_step(
+                    state, batch, w,
+                    pick=None if draws is None else draws[i])
+            per_step.append(m)
+        return state, {n: torch.stack([m[n] for m in per_step])
+                       for n in per_step[0]}
+
+    return multi_step
+
+
 def make_eval_step(model: VQVAE,
                    class_weights: Optional[Dict[str, torch.Tensor]] = None,
                    group=None) -> Callable:
@@ -198,6 +253,7 @@ def make_eval_step(model: VQVAE,
     cw = class_weights or {}
 
     def eval_step(batch, loss_weights):
+        batch = decode_wire_batch(batch, model.codebook.device)
         with torch.no_grad():
             _, metrics = vqvae_loss(model(batch), batch, cw, loss_weights)
         return dp.sync_metrics(metrics, group)
@@ -206,4 +262,5 @@ def make_eval_step(model: VQVAE,
 
 
 __all__ = ["VQVAETrainState", "make_optimizer", "init_train_state",
-           "vqvae_loss", "make_train_step", "make_eval_step"]
+           "vqvae_loss", "make_train_step", "make_scan_train_step",
+           "make_eval_step"]

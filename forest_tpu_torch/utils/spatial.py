@@ -11,9 +11,11 @@ vmapped by their caller; these take the batch dimension directly:
   anchor, bounds- and mask-checked;
 - :func:`spatial_negative_slots`: one shared pool of random valid pixels per
   sample, from which every anchor picks ``n_per_anchor`` members inside its
-  distance ring, returned as slot indices into the pool.
+  distance ring, returned as slot indices into the pool;
+  :func:`spatial_negative_pairs` returns the same picks as coordinates.
 
-Randomness: :func:`spatial_negative_slots` takes its two uniform draws
+Randomness: :func:`spatial_negative_slots` (and
+:func:`spatial_negative_pairs`) takes its two uniform draws
 (``pool_u`` [B, H*W], ``pick_u`` [B, N, P]) or draws them from ``generator``.
 """
 from __future__ import annotations
@@ -113,5 +115,30 @@ def spatial_negative_slots(anchor_coords: torch.Tensor, mask: torch.Tensor,
     return pool, pool_ok, sel, torch.isfinite(pv)
 
 
+def spatial_negative_pairs(anchor_coords: torch.Tensor, mask: torch.Tensor,
+                           min_distance: float = 16.0,
+                           max_distance: Optional[float] = None,
+                           n_per_anchor: int = 4, pool_size: int = 512, *,
+                           pool_u: Optional[torch.Tensor] = None,
+                           pick_u: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """:func:`spatial_negative_slots` with the picks as coordinates, the
+    same draws: (anchor_idx [B, N*k], neighbour coords [B, N*k, 2], valid
+    [B, N*k]), k = ``n_per_anchor``."""
+    bsz, n = anchor_coords.shape[:2]
+    pool, _, sel, sel_ok = spatial_negative_slots(
+        anchor_coords, mask, min_distance, max_distance, n_per_anchor,
+        pool_size, pool_u=pool_u, pick_u=pick_u, generator=generator)
+    bidx = torch.arange(bsz, device=pool.device)[:, None, None]
+    picked = pool[bidx, sel]                             # [B, N, k, 2]
+    anchor_idx = torch.arange(n, device=pool.device)[:, None].expand(
+        n, n_per_anchor).reshape(1, -1).expand(bsz, -1)
+    return (anchor_idx, picked.reshape(bsz, -1, 2),
+            sel_ok.reshape(bsz, -1))
+
+
 __all__ = ["extract_at_locations", "extract_temporal_at_locations",
-           "spatial_knn_pairs", "spatial_negative_slots"]
+           "spatial_knn_pairs", "spatial_negative_pairs",
+           "spatial_negative_slots"]

@@ -1,10 +1,11 @@
 """The port stands alone: nothing under forest_tpu_torch/ nor chip_smoke.py
-imports jax, flax, optax or the JAX package forest_tpu, nor scikit-learn,
-which the card's machine does not have; matplotlib, which it does not have
-either, is imported only inside the functions that draw a figure. Nothing
-under forest_tpu_torch/ imports PIL (the port reads and writes GeoTIFF with
-its own codec, data/tiff.py); chip_smoke.py imports it only inside the
-function that reports whether it imports on the machine.
+imports jax, flax, optax or the JAX package forest_tpu, nor scikit-learn or
+ml_dtypes (JAX's bfloat16 for numpy; the compact wire, data/wire.py, rounds
+to bfloat16 with torch), which the card's machine does not have; matplotlib,
+which it does not have either, is imported only inside the functions that
+draw a figure. Nothing under forest_tpu_torch/ imports PIL (the port reads
+and writes GeoTIFF with its own codec, data/tiff.py); chip_smoke.py imports
+it only inside the function that reports whether it imports on the machine.
 
 A static scan of every source file for import statements, and a subprocess
 that imports every module of the port with those names (and matplotlib)
@@ -19,7 +20,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "forest_tpu", "sklearn")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "forest_tpu", "sklearn",
+           "ml_dtypes")
 # never imported by the package itself
 PACKAGE_BLOCKED = BLOCKED + ("PIL",)
 # imported only inside a function, never when a module is imported
@@ -116,6 +118,7 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/zarr_info.py",
                  "forest_tpu_torch/data/manifest_stack.py",
                  "forest_tpu_torch/data/data_bundle.py",
+                 "forest_tpu_torch/data/wire.py",
                  "chip_smoke.py"):
         assert must in names, must
 
