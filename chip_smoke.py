@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile-training   # phases 1, 2 and a profile
+    python3 chip_smoke.py --profile-training   # phases 1, 2, a profile, MFU
     python3 chip_smoke.py --profile-training-type-only  # the type losses
     python3 chip_smoke.py --profile-vqvae      # the same for the VQ-VAE step
     python3 chip_smoke.py --profile-vq-core    # K4's time split by kernel
@@ -21,8 +21,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    [1, 40, 70, 8] and [2, 40, 37, 5], which cross a strip and a segment
    border of the kernel's tiling with a ragged last strip, on each of its
    three paths; two runs bit-identical at every shape;
-4. hold K2 (dx, dA, dB) to its plain version (autograd through the plain
-   forward) at [12, 256, 256, 48] in float32 and bfloat16 and time both;
+4. hold K2 (dx, dA, dB) to its plain version (the gradient of the plain
+   forward written out, ``bank_mix_bwd_reference``) at [12, 256, 256, 48]
+   in float32 and bfloat16 and time both;
    untimed at [2, 33, 37, 5] and at [1, 130, 70, 48], [2, 70, 37, 5] and
    [1, 70, 40, 8], which cross a strip and a segment border of the kernel's
    tiling with a width that is no multiple of the strip, on each of the
@@ -276,7 +277,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
     channel-major FRL batch. Printed: H2D bytes per batch
     plain and on the wire, ms per step of each VQ-VAE run and ladder rung,
     the FRL epochs' seconds and loader waits, the loader's seconds per
-    batch channel-major against the channel-last stack.
+    batch channel-major against the channel-last stack;
+21. the steps' FLOPs and MFU (``flops_and_check``): one FRL train step as
+    phase 8 builds it (B 12) and one VQ-VAE train step as phase 12 builds
+    it (``configs/vae_v0.yaml``, batch 64) counted on the card by
+    ``utils.flops.step_flops``, each hand-written kernel by its declared
+    cost; the FRL step at B 2 and the VQ-VAE step counted on the card and
+    on this machine's CPU, which must agree to the FLOP, operator by
+    operator. Printed: each step's GFLOP by operator, and its MFU
+    (``utils.flops.mfu_fields``) over phase 8's and phase 12's median step
+    times against the H100's dense peaks, with the card's name and power
+    limit; the reference's implied MFU on its A40 at 1.1 s a batch.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -287,9 +298,11 @@ two timed and two under ``torch.profiler``, and prints the device's busy
 time per step against the step's time without the profiler, the host
 synchronisations per step with the operators that made them, the forward's
 device time by stage of ``process_batch``, the kernels that took most of
-the device's time and every kernel of this package; it prints no result
-lines. ``--profile-training-type-only`` profiles the same step with the
-three type losses alone (the phase weights 0, as before the phase
+the device's time and every kernel of this package, then the step's GFLOP
+(``utils.flops.step_flops``) and its MFU over the step's time and over the
+device's busy time; it prints no result lines.
+``--profile-training-type-only`` profiles the same step with the three
+type losses alone (the phase weights 0, as before the phase
 curriculum starts). ``--profile-vqvae`` does the same for
 20 VQ-VAE train steps, on a resident batch and with the batch's copy to the
 device.
@@ -301,10 +314,16 @@ tools and the encoder on the built cube; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep; for K1-K4 the data-parallel ranks of phase 19; for
 K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder),
-error, times, and its bound: the larger of its bytes
+error, times, and its bound: the larger of its declared bytes
 (every input read once, every output written once) over 3.35 TB/s and its
-operations over 67 TFLOP/s (float32 outside the tensor cores; 989 TFLOP/s
-where bfloat16 operands could use them), the H100's published rates. The
+declared FLOPs over 67 TFLOP/s (float32 outside the tensor cores; 989
+TFLOP/s where bfloat16 operands could use them), the H100's published
+rates as ``utils/flops.BOUND_PEAK_FLOPS`` rounds them. The declared
+cost is the kernel's ``*_cost`` function
+(``ops.smoothing.bank_mix_cost`` and ``bank_mix_bwd_cost``,
+``ops.scatter.scatter_add_rows_cost``, ``ops.vq.vq_core_cost`` and
+``vq_assign_cost``, ``ops.vq_variants.assign_cost``), which is also the
+FLOP formula of the kernel's ``torch.library`` op. The
 script fails if any of the seven was launched no time on its path. The last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -357,11 +376,6 @@ SCATTER_SHAPE = (12, 2012, 65536, 48)     # B, N, R = H*W, C
 SCATTER_ODD_SHAPE = (3, 77, 131, 5)
 SCATTER_EXACT_SHAPE = (2, 300, 4099, 5)   # and four destinations in use
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 2, 5
-# the H100's published rates (SXM, dense): device memory and float32
-# outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12      # tensor cores, dense
 # the VQ bench shape (bench.py, scripts/bench_vq_variants.py) and the VQ-VAE
 # train step's (batch 64 of configs/vae_v0.yaml); odd shapes without padding
 VQ_SHAPE = (131072, 128, 256)             # N, D, K
@@ -458,14 +472,16 @@ def kernel_inputs(shape, dtype, generator):
             b_w.to(dtype).contiguous())
 
 
-def bound_ms(tensors, flops: float):
-    """-> (ms, "bytes" | "operations"): the least time the card could take,
-    every tensor moved once against the operations at the float32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
+def bound_ms(cost, peak: str = "f32"):
+    """-> (ms, "bytes" | "operations"): the least time the card could take
+    for one call of a kernel's declared cost (``utils/flops.KernelCost``,
+    from the kernel's ``*_cost`` function): its bytes over 3.35 TB/s
+    against its FLOPs over the float32 or the bfloat16 (``peak`` "f32" or
+    "bf16") rate of ``utils/flops.BOUND_PEAK_FLOPS``
+    (``utils/flops.bound_s``)."""
+    from forest_tpu_torch.utils.flops import BOUND_PEAK_FLOPS, bound_s
+    seconds, by = bound_s(cost, BOUND_PEAK_FLOPS[peak])
+    return seconds * 1e3, by
 
 
 def _bound(dtype, ref_max: float) -> float:
@@ -491,11 +507,8 @@ def check_fwd(shape, dtype, generator, timed: bool) -> dict:
     del again
     del ref
     if timed:
-        k, r = 2 * NUM_DIRECTIONS, RANK
-        # per element: K 3-tap means (3 flops), R sums over K (2K), R
-        # products with B (2)
-        res["bound_ms"], res["bound_by"] = bound_ms(
-            (x, a_w, b_w, out), x.numel() * (3 * k + 2 * k * r + 2 * r))
+        res["bound_ms"], res["bound_by"] = bound_ms(sm.bank_mix_cost(
+            x.shape, RANK, NUM_DIRECTIONS, x.element_size()))
         res["ms"] = cuda_ms(lambda: sm.bank_mix(x, a_w, b_w, **kw))
         res["plain_ms"] = cuda_ms(
             lambda: sm.bank_mix_reference(x, a_w, b_w, **kw), runs=5)
@@ -527,14 +540,8 @@ def check_bwd(shape, dtype, generator, timed: bool) -> dict:
         ok = ok and err <= bound
     del ref
     if timed:
-        k, r = 2 * NUM_DIRECTIONS, RANK
-        # per element: dx visits 2K + 1 positions (2R + 1 flops each, and
-        # the centre's R sums over K); f_k again (3K); dB (R (2K + 1)); dA's
-        # share (2 K R)
-        flops = x.numel() * ((2 * k + 1) * (2 * r + 1) + 2 * k * r + 3 * k
-                             + r * (2 * k + 1) + 2 * k * r)
-        res["bound_ms"], res["bound_by"] = bound_ms(
-            (x, a_w, b_w, g) + tuple(got), flops)
+        res["bound_ms"], res["bound_by"] = bound_ms(sm.bank_mix_bwd_cost(
+            x.shape, RANK, NUM_DIRECTIONS, x.element_size()))
         res["ms"] = cuda_ms(lambda: sm.bank_mix_bwd(x, a_w, b_w, g, **kw))
         res["plain_ms"] = cuda_ms(
             lambda: sm.bank_mix_bwd_reference(x, a_w, b_w, g, **kw), runs=3,
@@ -564,10 +571,9 @@ def check_scatter(shape, generator, timed: bool) -> dict:
            "runs_bit_identical": bool(torch.equal(out, again))}
     del out, again, ref
     if timed:
-        # one add per scattered element
+        # the indices counted as int32, as the bound has always counted them
         res["bound_ms"], res["bound_by"] = bound_ms(
-            (dz, idx.int(), torch.empty(b, r, c, device="meta")),
-            float(dz.numel()))
+            sc.scatter_add_rows_cost(dz.shape, r))
         # the form the training step runs, then the public form, whose
         # check of the device's flag synchronises with the host
         res["ms"] = cuda_ms(lambda: sc.scatter_add_rows(
@@ -774,9 +780,7 @@ def check_vq_core(generator) -> dict:
                empty_ok=bool(empty_ok))
     ok = ok and nan_ok and ties_ok and empty_ok
 
-    idx, q, counts, sums = without_qx
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        (x, c, idx, q, counts, sums), 2.0 * n * k * d)
+    res["bound_ms"], res["bound_by"] = bound_ms(vq.vq_core_cost(n, d, k))
     vq.vq_core.launches = 0       # the timed runs: the op called directly
     res["ms"] = cuda_ms(lambda: vq.vq_core(x, c))
     res["with_qx_ms"] = cuda_ms(lambda: vq.vq_core(x, c, with_qx=True))
@@ -863,12 +867,9 @@ def check_vq_assign(generator) -> dict:
             vq.vq_assign_reference(xi, ci, mxu_bf16=bf16)))
         ok = ok and res["nan_rule_ok"] and res["exact_ties_ok"] and \
             vq.vq_assign(x[:0], c).shape == (0,)
-        # x in, idx out; bf16 operands may use the tensor cores
-        by_bytes = (x.numel() + c.numel() + n) * 4 / PEAK_BYTES_PER_S * 1e3
-        by_ops = 2.0 * n * k * d / (PEAK_BF16_FLOPS if bf16
-                                    else PEAK_F32_FLOPS) * 1e3
-        res["bound_ms"] = max(by_bytes, by_ops)
-        res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        # bf16 operands may use the tensor cores
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            vq.vq_assign_cost(n, d, k, bf16), "bf16" if bf16 else "f32")
         res["max_abs_err"] = max(res["idx_rule"]["excess"], 0.0)
         vq.vq_assign.launches = 0     # the timed runs, as for vq_core
         res["ms"] = cuda_ms(lambda: vq.vq_assign(x, c, mxu_bf16=bf16))
@@ -983,11 +984,9 @@ def check_variants(generator, iters: int = 5) -> dict:
     swept = {"vq_variant_rows": vv.make_assign.launches,
              "vq_variant_cols": vv.make_assign_t.launches}
     lib = times["torch (matmul + argmin)"] / 1e3
-    by_bytes = (x.numel() + c.numel() + n) * 4 / PEAK_BYTES_PER_S * 1e3
-    by_ops = 2.0 * n * k * d / PEAK_F32_FLOPS * 1e3
+    bound, bound_by = bound_ms(vv.assign_cost(n, d, k))
     common = {"shape": list(VQ_SHAPE), "dtype": "float32",
-              "bound_ms": max(by_bytes, by_ops),
-              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+              "bound_ms": bound, "bound_by": bound_by,
               "library_ms": lib,
               "library_is": "a composition: matmul, argmin",
               "sweep_us": times}
@@ -1333,15 +1332,16 @@ PRODUCTION_SAMPLING = {
 
 
 def build_train_step(device: str = "cuda", evt_dir: Optional[Path] = None,
-                     diag: bool = False):
+                     diag: bool = False, bsz: Optional[int] = None):
     """The v1 model with seeded weights, the synthetic bindings with the
     production sampling strategy (stride 16, border 16, jitter 4, 104
     weighted supplement anchors: 300 per 256 x 256 patch), the port's
     process_batch (every loss of DEFAULT_WEIGHTS, the weights of
     configs/frl_training_v1.yaml at full ramp) and train_step over them,
-    and one synthetic batch on the device. With ``evt_dir`` the EVT loss is
-    on too (weight EVT_WEIGHT; its confusion CSV is written there), and
-    ``diag`` adds the diagnostics. -> a namespace: model, process, sampler,
+    and one synthetic batch of ``bsz`` (TRAIN_SHAPE's 12 unless given) on
+    the device. With ``evt_dir`` the EVT loss is on too (weight EVT_WEIGHT;
+    its confusion CSV is written there), and ``diag`` adds the
+    diagnostics. -> a namespace: model, process, sampler,
     step_cfg, batch, weights, curriculum, gen, optimizer, state,
     train_step."""
     from types import SimpleNamespace
@@ -1387,7 +1387,7 @@ def build_train_step(device: str = "cuda", evt_dir: Optional[Path] = None,
     if step_cfg.evt_enabled != (evt_dir is not None):
         raise AssertionError(f"evt_enabled {step_cfg.evt_enabled}")
     sampler = cb.build_sampler(bindings, training_cfg)
-    bsz, hw = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    bsz, hw = bsz or TRAIN_SHAPE[0], TRAIN_SHAPE[1]
     process = step_mod.make_process_batch(
         model, fb, sampler, step_cfg, hw, evt_tables=evt_tables, diag=diag,
         device=device)
@@ -3664,11 +3664,13 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 
 def profile_steps(label: str, run_step, warm: int, steps: int,
-                  top: int = 25) -> None:
+                  top: int = 25) -> dict:
     """Profile ``steps`` calls of ``run_step``: device busy share of the
     window, the host synchronisations by the operator that made them, the
     device kernels by total time (kernel-level rows only) and the device
-    time of every ``record_function`` range named "stage:..."."""
+    time of every ``record_function`` range named "stage:...". -> the ms
+    per step without the profiler (``wall_ms``) and the device's busy ms
+    per step under it (``busy_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3725,6 +3727,7 @@ def profile_steps(label: str, run_step, warm: int, steps: int,
         word in kv[0] for word in ("bank_mix", "scatter_", "vq_"))]
     for name, (n, t) in ranked[:top] + ours:
         log(f"  {t / steps:8.4f} ms/step  {n / steps:6.1f} x  {name[:110]}")
+    return {"wall_ms": wall_ms / steps, "busy_ms": busy_ms / steps}
 
 
 def vq_core_split(generator, shapes=(VQ_SHAPE, VQ_STEP_SHAPE),
@@ -3862,8 +3865,25 @@ def profile_training(device: str = "cuda", type_only: bool = False) -> None:
     t.model.forward = _staged(t.model.forward, "type forward")
     t.model.forward_phase_at_locations = _staged(
         t.model.forward_phase_at_locations, "phase forward")
-    profile_steps("train", lambda: t.train_step(
-        t.state, t.batch, t.gen, t.weights, t.curriculum), warm=3, steps=2)
+
+    def run():
+        return t.train_step(t.state, t.batch, t.gen, t.weights, t.curriculum)
+    times = profile_steps("train", run, warm=3, steps=2)
+    log_step_mfu("train", run, times)
+
+
+def log_step_mfu(label: str, run_step, times: dict) -> None:
+    """One more call of ``run_step`` counted by ``utils.flops.step_flops``:
+    print its GFLOP and its MFU against the H100's dense peaks over
+    ``times``' ms per step and over the device's busy ms per step."""
+    from forest_tpu_torch.utils import flops as fl
+    n = fl.step_flops(run_step)
+    log(f"{label} step: {n / 1e9:.3f} GFLOP (utils.flops.step_flops); over "
+        f"{times['wall_ms']:.3f} ms a step "
+        f"{json.dumps(fl.mfu_fields('step', n, times['wall_ms'] / 1e3))}; "
+        f"over the device's busy {times['busy_ms']:.3f} ms "
+        f"{json.dumps(fl.mfu_fields('busy', n, times['busy_ms'] / 1e3))} "
+        f"({card_line()})")
 
 
 def profile_vqvae(device: str = "cuda") -> None:
@@ -3876,8 +3896,12 @@ def profile_vqvae(device: str = "cuda") -> None:
         zarr = Path(d) / "cube.zarr"
         build_synthetic_cube(zarr, height=256, width=256, seed=SEED)
         k = build_vqvae_step(zarr, Path(d) / "run", device)
-        profile_steps("vqvae train", lambda: k.train_step(
-            k.state, k.batch, k.weights), warm=10, steps=20)
+
+        def run():
+            return k.train_step(k.state, k.batch, k.weights)
+        log_step_mfu("vqvae train",
+                     run, profile_steps("vqvae train", run, warm=10,
+                                        steps=20))
         profile_steps("vqvae train (with the batch's H2D copy)",
                       lambda: k.train_step(
                           k.state, train_vqvae.host_to_device_batch(
@@ -4821,6 +4845,76 @@ def wire_and_check(tmp: Path, device: str = "cuda") -> dict:
     return res
 
 
+# phase 21: the FRL step is counted on the card and on the CPU at this batch
+# (the CPU runs the v1 model at 256^2 in a few seconds a sample)
+FLOPS_PARITY_BATCH = 2
+
+
+def flops_and_check(frl_step_ms: float, vq_step_ms: float,
+                    device: str = "cuda") -> dict:
+    """Phase 21: the FLOPs of one FRL train step as phase 8 builds it (B 12)
+    and of one VQ-VAE train step as phase 12 builds it, by
+    ``utils.flops.step_flops`` on ``device`` (each kernel by its declared
+    cost), and their MFU over ``frl_step_ms`` and ``vq_step_ms`` (phase 8's
+    and phase 12's medians) against the H100's dense peaks. The FRL step at
+    B FLOPS_PARITY_BATCH and the VQ-VAE step are counted on ``device`` and
+    on the CPU as well: the counts must agree operator by operator.
+    -> the counts, their split by operator and the MFU fields."""
+    import torch
+
+    from forest_tpu_torch.data.cube import build_synthetic_cube
+    from forest_tpu_torch.utils import flops as fl
+
+    def frl(dev, bsz=None):
+        t = build_train_step(dev, bsz=bsz)
+        return t.train_step, (t.state, t.batch, t.gen, t.weights,
+                              t.curriculum)
+
+    def vqvae(dev, zarr, run_dir):
+        k = build_vqvae_step(zarr, run_dir, dev)
+        return k.train_step, (k.state, k.batch, k.weights)
+
+    t0 = time.perf_counter()
+    fn, args = frl(device)
+    res = {"frl": {"batch": TRAIN_SHAPE[0],
+                   "flops": fl.step_flops(fn, *args)}}
+    del fn, args
+    torch.cuda.empty_cache()
+    parity = {}
+    for dev in (device, "cpu"):
+        fn, args = frl(dev, FLOPS_PARITY_BATCH)
+        t1 = time.perf_counter()
+        parity[dev] = {"frl": fl.flops_by_op(fn, *args),
+                       "frl_s": time.perf_counter() - t1}
+        del fn, args
+    with tempfile.TemporaryDirectory() as d:
+        zarr = Path(d) / "cube.zarr"
+        build_synthetic_cube(zarr, height=256, width=256,
+                             years=tuple(range(2017, 2022)), n_cont=8,
+                             n_cat=2, n_naip=3, seed=SEED)
+        for dev in (device, "cpu"):
+            fn, args = vqvae(dev, zarr, Path(d) / "run")
+            parity[dev]["vqvae"] = fl.flops_by_op(fn, *args)
+            del fn, args
+    res["vqvae"] = {"batch": VQ_STEP_SHAPE[0],
+                    "flops": sum(parity[device]["vqvae"].values())}
+    res["frl"].update(parity_batch=FLOPS_PARITY_BATCH,
+                      cpu_parity_step_s=parity["cpu"]["frl_s"])
+    for key, ms in (("frl", frl_step_ms), ("vqvae", vq_step_ms)):
+        got, cpu = parity[device][key], parity["cpu"][key]
+        if got != cpu:
+            raise AssertionError(f"{key}: the step counts {got} on "
+                                 f"{device} and {cpu} on the CPU")
+        res[key].update(by_op=got, parity_flops=sum(got.values()),
+                        step_ms=ms,
+                        mfu=fl.mfu_fields(key, res[key]["flops"], ms / 1e3))
+    res["reference_a40_mfu_pct"] = 100.0 * fl.mfu(
+        res["frl"]["flops"], fl.REFERENCE_FRL_S_PER_BATCH,
+        fl.PEAK_TFLOPS["a40_bf16"])
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def vq_paths(vqvae_training: int = 0, kernel_check: int = 0,
              variant_sweep: int = 0) -> dict:
     """Launches of a VQ kernel by path: the VQ-VAE's CLI run, the op called
@@ -4966,6 +5060,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         wire = wire_and_check(Path(d))                        # phase 20
     log(f"wire, blocks and ladder: {json.dumps(wire, default=float)}")
+    torch.cuda.empty_cache()
+    flops = flops_and_check(train["step_ms_median"],          # phase 21
+                            vqvae["step_ms_median"])
+    log(f"step FLOPs: {json.dumps(flops)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -5188,6 +5286,16 @@ def main() -> int:
         f"{v['ms_per_step']:.2f} ms per step, train/loss_total "
         f"{v['train_loss_total']:.4f}, K4 {v['launches']}"
         for k, v in wl.items()) + f" ({card})")
+    ff, fv = flops["frl"], flops["vqvae"]
+    log(f"FRL train step at B {ff['batch']}: {ff['flops'] / 1e9:.3f} GFLOP "
+        f"(utils.flops.step_flops), {ff['step_ms']:.2f} ms (phase 8's "
+        f"median): {json.dumps(ff['mfu'])}; the reference's 1.1 s a batch "
+        f"on its A40 would be {flops['reference_a40_mfu_pct']:.3f} % of "
+        f"149.7 TFLOP/s; VQ-VAE train step at batch {fv['batch']}: "
+        f"{fv['flops'] / 1e9:.4f} GFLOP, {fv['step_ms']:.3f} ms (phase 12's "
+        f"median): {json.dumps(fv['mfu'])}; the card's and the CPU's counts "
+        f"equal: FRL at B {ff['parity_batch']} {ff['parity_flops']}, "
+        f"VQ-VAE {fv['parity_flops']} FLOPs ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     kernels = [

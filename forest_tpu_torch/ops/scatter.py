@@ -17,11 +17,15 @@ neighbours and the shared negative pool); the gradient of that gather is
   thousand (the source says where it stops). A CPU tensor goes to the plain
   version :func:`scatter_add_rows_reference` (``index_add_`` per sample,
   which on the CPU adds in ascending j too); a CUDA tensor launches the
-  kernel or raises. ``scatter_add_rows.launches`` counts the launches.
-- :func:`extract_rows` is a ``torch.autograd.Function``: the forward is a
-  plain gather, the backward is :func:`scatter_add_rows` without its host
-  check of the indices (they passed the forward's gather), cast back to
-  the grid's dtype.
+  kernel or raises. ``scatter_add_rows.launches`` counts the launches. It
+  is the ``torch.library`` op ``forest_tpu_torch::scatter_add_rows``,
+  whose FLOP formula is its declared cost, :func:`scatter_add_rows_cost`
+  (``utils/flops.py``); the op returns the kernel's flag of bad indices
+  beside the sum, and the wrapper reads it outside the op.
+- :func:`extract_rows` is the op ``forest_tpu_torch::extract_rows``: the
+  forward is a plain gather, the registered gradient is
+  :func:`scatter_add_rows` without its host check of the indices (they
+  passed the forward's gather), cast back to the grid's dtype.
 - :func:`extract_at_coords` takes a [B, H, W, C] grid and (row, col)
   coordinates.
 
@@ -36,7 +40,9 @@ import functools
 
 import torch
 
+from forest_tpu_torch.ops import _library
 from forest_tpu_torch.ops._cuda_build import load_library
+from forest_tpu_torch.utils.flops import KernelCost
 
 
 @functools.cache
@@ -71,13 +77,74 @@ def scatter_add_rows_reference(dz: torch.Tensor, flat_idx: torch.Tensor,
     return out
 
 
+def scatter_add_rows_cost(dz_shape, n_rows: int) -> KernelCost:
+    """One call of ``scatter_add_rows`` on dz [B, N, C]: one add per
+    scattered element; dz (float32) and the indices (int32, as the training
+    step passes them) read once, the [B, n_rows, C] float32 output written
+    once (the B words of the index flag are left out).
+
+    The Pallas estimate (``forest_tpu/ops/scatter.py:146``) counts the
+    one-hot product of every tile of rows with its capacity of dz rows, 2
+    B n_rows cap C FLOPs, and reads each tile's slice of dz again."""
+    b, n, c = dz_shape
+    return KernelCost(flops=b * n * c,
+                      bytes_accessed=4 * b * n * c + 4 * b * n
+                      + 4 * b * n_rows * c)
+
+
+def _plain(dz, flat_idx, n_rows):
+    out = scatter_add_rows_reference(dz, flat_idx, n_rows)
+    return out, torch.zeros(dz.shape[0], dtype=torch.int32)
+
+
+def _launch(dz, flat_idx, n_rows):
+    """-> (out, one int32 flag per sample, set where an index lay outside
+    [0, n_rows)): the kernel on the current stream."""
+    bsz, n, c = dz.shape
+    if n_rows < 1 or n_rows > 2 ** 31 - 1:
+        raise ValueError(f"scatter_add_rows: n_rows={n_rows}")
+    if dz.numel() == 0:
+        return (torch.zeros(bsz, n_rows, c, dtype=torch.float32,
+                            device=dz.device),
+                torch.zeros(bsz, dtype=torch.int32, device=dz.device))
+    dz = dz.float().contiguous()
+    idx = flat_idx.contiguous()
+    out = torch.empty(bsz, n_rows, c, dtype=torch.float32, device=dz.device)
+    bad = torch.empty(bsz, dtype=torch.int32, device=dz.device)
+    # this wrapper's time on the host is part of every call's: the device
+    # guard is entered only where it changes the device
+    guard = (contextlib.nullcontext()
+             if dz.device.index == torch.cuda.current_device()
+             else torch.cuda.device(dz.device))
+    with guard:
+        stream = torch.cuda.current_stream(dz.device).cuda_stream
+        err = _kernel()(dz.data_ptr(), idx.data_ptr(),
+                        int(idx.dtype == torch.int64), out.data_ptr(),
+                        bad.data_ptr(), bsz, n, n_rows, c, stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_add_rows launch failed: cudaError {err}")
+    scatter_add_rows.launches += 1
+    return out, bad
+
+
+_library.define(
+    "scatter_add_rows", "(Tensor dz, Tensor flat_idx, int n_rows) "
+    "-> (Tensor, Tensor)", cpu=_plain, cuda=_launch,
+    fake=lambda dz, flat_idx, n_rows: (
+        dz.new_empty(dz.shape[0], n_rows, dz.shape[2], dtype=torch.float32),
+        dz.new_empty(dz.shape[0], dtype=torch.int32)),
+    flops=lambda dz, flat_idx, n_rows, out_shape=None: scatter_add_rows_cost(
+        dz, n_rows).flops)
+
+
 def scatter_add_rows(dz: torch.Tensor, flat_idx: torch.Tensor,
                      n_rows: int, *, check_index: bool = True
                      ) -> torch.Tensor:
     """out[b, p, c] = sum over j with flat_idx[b, j] == p of dz[b, j, c].
 
     dz [B, N, C] (taken in float32), flat_idx [B, N] int32 or int64 in
-    [0, n_rows); out [B, n_rows, C] float32.
+    [0, n_rows); out [B, n_rows, C] float32. The op
+    ``forest_tpu_torch::scatter_add_rows``.
 
     An index outside the range never writes outside ``out``. What the
     caller learns of it depends on ``check_index``:
@@ -100,36 +167,12 @@ def scatter_add_rows(dz: torch.Tensor, flat_idx: torch.Tensor,
     if flat_idx.device != dz.device:
         raise ValueError(f"scatter_add_rows: flat_idx on {flat_idx.device}, "
                          f"dz on {dz.device}")
-    if dz.device.type == "cpu":
-        return scatter_add_rows_reference(dz, flat_idx, n_rows)
-    if dz.device.type != "cuda":
+    if dz.device.type not in ("cpu", "cuda"):
         raise ValueError(f"scatter_add_rows: no kernel for device "
                          f"{dz.device}")
-    bsz, n, c = dz.shape
-    if n_rows < 1 or n_rows > 2 ** 31 - 1:
-        raise ValueError(f"scatter_add_rows: n_rows={n_rows}")
-    if dz.numel() == 0:
-        return torch.zeros(bsz, n_rows, c, dtype=torch.float32,
-                           device=dz.device)
-    dz = dz.float().contiguous()
-    idx = flat_idx.contiguous()
-    out = torch.empty(bsz, n_rows, c, dtype=torch.float32, device=dz.device)
-    # one flag per sample, written by the kernel: an index out of range
-    bad = torch.empty(bsz, dtype=torch.int32, device=dz.device)
-    # this wrapper's time on the host is part of every call's: the device
-    # guard is entered only where it changes the device
-    guard = (contextlib.nullcontext()
-             if dz.device.index == torch.cuda.current_device()
-             else torch.cuda.device(dz.device))
-    with guard:
-        stream = torch.cuda.current_stream(dz.device).cuda_stream
-        err = _kernel()(dz.data_ptr(), idx.data_ptr(),
-                        int(idx.dtype == torch.int64), out.data_ptr(),
-                        bad.data_ptr(), bsz, n, n_rows, c, stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_add_rows launch failed: cudaError {err}")
-    scatter_add_rows.launches += 1
-    if check_index and bad.any().item():
+    out, bad = torch.ops.forest_tpu_torch.scatter_add_rows(dz, flat_idx,
+                                                           n_rows)
+    if check_index and dz.device.type == "cuda" and bad.any().item():
         raise IndexError(f"scatter_add_rows: an index lies outside "
                          f"[0, {n_rows})")
     return out
@@ -138,28 +181,43 @@ def scatter_add_rows(dz: torch.Tensor, flat_idx: torch.Tensor,
 scatter_add_rows.launches = 0
 
 
-class _ExtractRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, grid, flat_idx):
-        ctx.save_for_backward(flat_idx)
-        ctx.n_rows = grid.shape[1]
-        ctx.grid_dtype = grid.dtype
-        idx = flat_idx.long()[:, :, None].expand(-1, -1, grid.shape[2])
-        return torch.take_along_dim(grid, idx, dim=1)
+def _gather(grid, flat_idx):
+    idx = flat_idx.long()[:, :, None].expand(-1, -1, grid.shape[2])
+    return torch.take_along_dim(grid, idx, dim=1)
 
-    @staticmethod
-    def backward(ctx, ct):
-        (flat_idx,) = ctx.saved_tensors
-        dg = scatter_add_rows(ct, flat_idx, ctx.n_rows,
-                              check_index=False)
-        return dg.to(ctx.grid_dtype), None
+
+_library.define(
+    "extract_rows", "(Tensor grid, Tensor flat_idx) -> Tensor", cpu=_gather,
+    cuda=_gather, fake=lambda grid, flat_idx: grid.new_empty(
+        grid.shape[0], flat_idx.shape[1], grid.shape[2]))
+
+
+def _save_index(ctx, inputs, output):
+    grid, flat_idx = inputs
+    ctx.save_for_backward(flat_idx)
+    ctx.n_rows = grid.shape[1]
+    ctx.grid_dtype = grid.dtype
+
+
+def _extract_rows_backward(ctx, ct):
+    """The gradient of the gather: :func:`scatter_add_rows` (the op) without
+    its host check of the indices (they passed the forward's gather), cast
+    back to the grid's dtype."""
+    (flat_idx,) = ctx.saved_tensors
+    dg = scatter_add_rows(ct, flat_idx, ctx.n_rows, check_index=False)
+    return dg.to(ctx.grid_dtype), None
+
+
+_library.register_autograd("extract_rows", _extract_rows_backward,
+                           _save_index)
 
 
 def extract_rows(grid: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
-    """grid [B, R, C], flat_idx [B, N] -> [B, N, C]; the backward is
+    """grid [B, R, C], flat_idx [B, N] -> [B, N, C]; the op
+    ``forest_tpu_torch::extract_rows``, whose gradient is
     :func:`scatter_add_rows` with ``check_index=False``: on a CUDA tensor it
     makes no host synchronise."""
-    return _ExtractRows.apply(grid, flat_idx)
+    return torch.ops.forest_tpu_torch.extract_rows(grid, flat_idx)
 
 
 def extract_at_coords(grid: torch.Tensor,
@@ -170,5 +228,5 @@ def extract_at_coords(grid: torch.Tensor,
     return extract_rows(grid.reshape(b, h * w, c), flat)
 
 
-__all__ = ["scatter_add_rows", "scatter_add_rows_reference", "extract_rows",
-           "extract_at_coords"]
+__all__ = ["scatter_add_rows", "scatter_add_rows_reference",
+           "scatter_add_rows_cost", "extract_rows", "extract_at_coords"]

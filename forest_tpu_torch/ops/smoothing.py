@@ -9,9 +9,14 @@ the JAX package:
   ``bank_mix_xla``: both banks as grouped convs, then the per-pixel einsum;
 - :func:`bank_mix` is the wrapper of the hand-written CUDA kernels
   ``csrc/bank_mix_fwd.cu`` and, for the gradient, ``csrc/bank_mix_bwd.cu``
-  (:func:`bank_mix_bwd`, joined in :class:`BankMixFunction`). A CPU tensor
-  goes to the plain versions; a CUDA tensor launches the kernels or raises.
-  ``bank_mix.launches`` and ``bank_mix_bwd.launches`` count the launches.
+  (:func:`bank_mix_bwd`). Each is a ``torch.library`` op,
+  ``forest_tpu_torch::bank_mix_fwd`` and ``::bank_mix_bwd``, the second the
+  first's registered gradient: a CPU tensor goes to the plain versions
+  (:func:`bank_mix_bwd_reference` writes the gradient out), a CUDA tensor
+  launches the kernels or raises. ``bank_mix.launches`` and
+  ``bank_mix_bwd.launches`` count the launches. Each op's FLOP formula is
+  its declared cost, :func:`bank_mix_cost` / :func:`bank_mix_bwd_cost`
+  (``utils/flops.py``).
 
 The forward is one kernel and one pass: a block walks down a strip of 32
 pixel columns, keeps a ring of 2 dc + 2 rows of x in shared memory (filled
@@ -50,7 +55,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from forest_tpu_torch.ops import _library
 from forest_tpu_torch.ops._cuda_build import load_library
+from forest_tpu_torch.utils.flops import KernelCost
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -211,34 +218,49 @@ def _launch_fwd(x, a_w, b_w, nd: int, dc: int) -> torch.Tensor:
     return out
 
 
+def _grouped_conv_nhwc_adjoint(dy: torch.Tensor, templates: np.ndarray,
+                               dilation: int) -> torch.Tensor:
+    """The adjoint of :func:`_grouped_conv_nhwc` (its gradient with respect
+    to x): dy [B, H, W, C, F] -> [B, H, W, C]."""
+    b, h, w, c, f = dy.shape
+    wt = torch.as_tensor(np.tile(templates[None], (c, 1, 1, 1)),
+                         dtype=dy.dtype, device=dy.device)
+    dx = torch.nn.grad.conv2d_input(
+        (b, c, h, w), wt.reshape(c * f, 1, 3, 3),
+        dy.reshape(b, h, w, c * f).permute(0, 3, 1, 2), padding=dilation,
+        dilation=dilation, groups=c)
+    return dx.permute(0, 2, 3, 1)
+
+
 def bank_mix_bwd_reference(x, a_w, b_w, g, *, num_directions: int = 4,
                            coarse_dilation: int = 3):
-    """Plain version of the backward: autograd through
-    :func:`bank_mix_reference`. Returns (dx, dA, dB) in the inputs' dtype."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (x, a_w, b_w)]
-        out = bank_mix_reference(*leaves, num_directions=num_directions,
-                                 coarse_dilation=coarse_dilation)
-        return torch.autograd.grad(out, leaves, g.to(out.dtype))
+    """Plain version of the backward, written out. With f_k the bank's
+    filtered x (:func:`bank_mix_reference`) and M_k[c] = sum_r A[k, r]
+    B[c, r]: dA[k, r] = sum_c g[c] f_k[c] B[c, r], dB[c, r] = g[c] sum_k
+    f_k[c] A[k, r], and dx the banks' adjoints (grouped transposed convs)
+    of g M_k. Computes in float32, as the kernel accumulates, with ``g``
+    taken in x's dtype; returns (dx, dA, dB) in the inputs' dtypes."""
+    dtypes = (x.dtype, a_w.dtype, b_w.dtype)
+    g = g.to(x.dtype).float()[..., None]
+    x, a_w, b_w = x.float(), a_w.float(), b_w.float()
+    b, h, w, c = x.shape
+    bank = _direction_bank()[:num_directions]
+    fine = depthwise_bank_conv(x, bank, dilation=1)
+    coarse = depthwise_bank_conv(x, bank, dilation=coarse_dilation)
+    filtered = torch.stack([fine, coarse], dim=-1).reshape(
+        b, h, w, c, 2 * num_directions)
+    da = torch.einsum("bhwck,bhwcr->bhwkr", g * filtered, b_w)
+    db = g * torch.einsum("bhwck,bhwkr->bhwcr", filtered, a_w)
+    df = (g * torch.einsum("bhwkr,bhwcr->bhwck", a_w, b_w)).reshape(
+        b, h, w, c, num_directions, 2)
+    dx = (_grouped_conv_nhwc_adjoint(df[..., 0], bank, 1)
+          + _grouped_conv_nhwc_adjoint(df[..., 1], bank, coarse_dilation))
+    return tuple(t.to(dt) for t, dt in zip((dx, da, db), dtypes))
 
 
-def bank_mix_bwd(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor,
-                 g: torch.Tensor, *, num_directions: int = 4,
-                 coarse_dilation: int = 3):
-    """Gradients (dx, dA, dB) of :func:`bank_mix` for the cotangent ``g``.
-
-    ``g`` has x's shape and is taken in x's dtype. On CPU tensors this is
-    :func:`bank_mix_bwd_reference`; on CUDA tensors it launches
-    ``bank_mix_bwd`` (one kernel, f32 accumulation, no atomics, the same
-    bits in every run) on the current stream or raises.
-    ``bank_mix_bwd.launches`` counts the launches."""
-    if x.device.type == "cpu":
-        return bank_mix_bwd_reference(
-            x, a_w, b_w, g, num_directions=num_directions,
-            coarse_dilation=coarse_dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"bank_mix_bwd: no kernel for device {x.device}")
-    _check_kernel_args(x, a_w, b_w, num_directions, coarse_dilation)
+def _launch_bwd(x, a_w, b_w, g, nd: int, dc: int):
+    """Check the arguments and launch ``bank_mix_bwd`` on CUDA tensors."""
+    _check_kernel_args(x, a_w, b_w, nd, dc)
     if g.device != x.device or g.shape != x.shape:
         raise ValueError(f"bank_mix_bwd: g {tuple(g.shape)} on {g.device}, "
                          f"x {tuple(x.shape)} on {x.device}")
@@ -252,7 +274,7 @@ def bank_mix_bwd(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), a_w.data_ptr(), b_w.data_ptr(),
                  dx.data_ptr(), da.data_ptr(), db.data_ptr(), b, h, w, c,
-                 num_directions, a_w.shape[-1], coarse_dilation, stream)
+                 nd, a_w.shape[-1], dc, stream)
     if err != 0:
         raise RuntimeError(
             f"bank_mix_bwd launch failed: cudaError {err}"
@@ -260,32 +282,122 @@ def bank_mix_bwd(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor,
                "coarse_dilation <= 19 and (1 + 2 dc) * 4 * (pad(K C) + "
                "(4 dc + 3) pad(C)) <= 232448 bytes of shared memory, pad(n) "
                f"= n rounded up to 8 modulo 16 (16 modulo 32 where R = 4, K "
-               f"= 8 and C is even); got C={c}, "
-               f"K={2 * num_directions}, dc={coarse_dilation}"
+               f"= 8 and C is even); got C={c}, K={2 * nd}, dc={dc}"
                if err == 1 else ""))
     bank_mix_bwd.launches += 1
     return dx, da, db
 
 
-class BankMixFunction(torch.autograd.Function):
-    """``bank_mix`` on CUDA tensors with its gradient: the forward kernel,
-    and the backward kernel on the saved x, A and B."""
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops: the plain version for a CPU tensor, the
+# kernel for a CUDA tensor, and the FLOP formula from the declared cost
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, x, a_w, b_w, num_directions, coarse_dilation):
-        ctx.save_for_backward(x, a_w, b_w)
-        ctx.bank = (num_directions, coarse_dilation)
-        return _launch_fwd(x, a_w, b_w, num_directions, coarse_dilation)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, a_w, b_w = ctx.saved_tensors
-        nd, dc = ctx.bank
-        dx, da, db = bank_mix_bwd(x, a_w, b_w, g, num_directions=nd,
-                                  coarse_dilation=dc)
-        need = ctx.needs_input_grad
-        return (dx if need[0] else None, da if need[1] else None,
-                db if need[2] else None, None, None)
+def bank_mix_cost(x_shape, rank: int, num_directions: int = 4,
+                  itemsize: int = 4) -> KernelCost:
+    """One call of ``bank_mix_fwd`` on x [B, H, W, C] with rank ``rank``:
+    per output element K = 2 num_directions 3-tap means (3 FLOPs each), R
+    sums over K (2 K each) and R products with B (2 each); x, A [.., K, R]
+    and B [.., C, R] read once and the output written once, ``itemsize``
+    bytes an element.
+
+    The Pallas estimate (``forest_tpu/ops/smoothing.py:347``) counts K (2 R
+    + 8) FLOPs an element of C and W padded to its tiles, and reads x three
+    times (its halo views), in bfloat16."""
+    b, h, w, c = x_shape
+    k, r, pix = 2 * num_directions, rank, b * h * w
+    return KernelCost(flops=pix * c * (3 * k + 2 * k * r + 2 * r),
+                      bytes_accessed=itemsize * pix * (2 * c + k * r
+                                                       + c * r))
+
+
+def bank_mix_bwd_cost(x_shape, rank: int, num_directions: int = 4,
+                      itemsize: int = 4) -> KernelCost:
+    """One call of ``bank_mix_bwd``: per element of x, dx visits the 2 K + 1
+    taps ((2 R + 1) FLOPs each) and the centre's R sums over K (2 K R), f_k
+    again (3 K), dB (R (2 K + 1)) and dA's share (2 K R); x, g, A, B read
+    once and dx, dA, dB written once, ``itemsize`` bytes an element.
+
+    The Pallas estimate (``forest_tpu/ops/smoothing.py:387``) counts K (4 R
+    + 16) FLOPs an element of the padded tiles, and every operand's halo
+    views three times over."""
+    b, h, w, c = x_shape
+    k, r, pix = 2 * num_directions, rank, b * h * w
+    per = ((2 * k + 1) * (2 * r + 1) + 2 * k * r + 3 * k + r * (2 * k + 1)
+           + 2 * k * r)
+    return KernelCost(flops=pix * c * per,
+                      bytes_accessed=itemsize * pix * (3 * c + 2 * k * r
+                                                       + 2 * c * r))
+
+
+def _plain_fwd(x, a_w, b_w, num_directions, coarse_dilation):
+    return bank_mix_reference(x, a_w, b_w, num_directions=num_directions,
+                              coarse_dilation=coarse_dilation)
+
+
+def _plain_bwd(x, a_w, b_w, g, num_directions, coarse_dilation):
+    return bank_mix_bwd_reference(x, a_w, b_w, g,
+                                  num_directions=num_directions,
+                                  coarse_dilation=coarse_dilation)
+
+
+_library.define(
+    "bank_mix_fwd", "(Tensor x, Tensor a_w, Tensor b_w, int num_directions, "
+    "int coarse_dilation) -> Tensor", cpu=_plain_fwd, cuda=_launch_fwd,
+    fake=lambda x, a_w, b_w, nd, dc: torch.empty_like(x),
+    flops=lambda x, a_w, b_w, nd, dc, out_shape=None: bank_mix_cost(
+        x, a_w[-1], nd).flops)
+_library.define(
+    "bank_mix_bwd", "(Tensor x, Tensor a_w, Tensor b_w, Tensor g, "
+    "int num_directions, int coarse_dilation) -> (Tensor, Tensor, Tensor)",
+    cpu=_plain_bwd, cuda=_launch_bwd,
+    fake=lambda x, a_w, b_w, g, nd, dc: tuple(
+        torch.empty_like(t) for t in (x, a_w, b_w)),
+    flops=lambda x, a_w, b_w, g, nd, dc, out_shape=None: bank_mix_bwd_cost(
+        x, a_w[-1], nd).flops)
+
+
+def _save_inputs(ctx, inputs, output):
+    x, a_w, b_w, nd, dc = inputs
+    ctx.save_for_backward(x, a_w, b_w)
+    ctx.bank = (nd, dc)
+
+
+def _bank_mix_grad(ctx, g):
+    """The gradient of ``bank_mix_fwd``: the ``bank_mix_bwd`` op on the
+    saved x, A and B."""
+    x, a_w, b_w = ctx.saved_tensors
+    nd, dc = ctx.bank
+    dx, da, db = bank_mix_bwd(x, a_w, b_w, g, num_directions=nd,
+                              coarse_dilation=dc)
+    need = ctx.needs_input_grad
+    return (dx if need[0] else None, da if need[1] else None,
+            db if need[2] else None, None, None)
+
+
+_library.register_autograd("bank_mix_fwd", _bank_mix_grad, _save_inputs)
+
+
+def _kernel_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def bank_mix_bwd(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor,
+                 g: torch.Tensor, *, num_directions: int = 4,
+                 coarse_dilation: int = 3):
+    """Gradients (dx, dA, dB) of :func:`bank_mix` for the cotangent ``g``.
+
+    ``g`` has x's shape and is taken in x's dtype. The op
+    ``forest_tpu_torch::bank_mix_bwd``: on CPU tensors
+    :func:`bank_mix_bwd_reference`; on CUDA tensors it launches
+    ``bank_mix_bwd`` (one kernel, f32 accumulation, no atomics, the same
+    bits in every run) on the current stream or raises.
+    ``bank_mix_bwd.launches`` counts the launches."""
+    _kernel_device("bank_mix_bwd", x)
+    return torch.ops.forest_tpu_torch.bank_mix_bwd(
+        x, a_w, b_w, g, num_directions, coarse_dilation)
 
 
 def bank_mix(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor, *,
@@ -294,26 +406,19 @@ def bank_mix(x: torch.Tensor, a_w: torch.Tensor, b_w: torch.Tensor, *,
     """Fused fine/coarse directional bank + rank-R mixing, differentiable.
 
     x [B,H,W,C]; a_w [B,H,W,K,R] softmaxed over K; b_w [B,H,W,C,R]
-    softmaxed over R; all contiguous, float32 or bfloat16. On a CPU tensor
-    this is :func:`bank_mix_reference` (autograd differentiates it); on a
-    CUDA tensor it is :class:`BankMixFunction`: ``bank_mix_fwd`` on the
-    current stream (f32 accumulation, output in x's dtype) and
-    ``bank_mix_bwd`` for the gradient, or it raises."""
-    if x.device.type == "cpu":
-        return bank_mix_reference(x, a_w, b_w, num_directions=num_directions,
-                                  coarse_dilation=coarse_dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"bank_mix: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or a_w.requires_grad
-                                    or b_w.requires_grad):
-        return BankMixFunction.apply(x, a_w, b_w, num_directions,
-                                     coarse_dilation)
-    return _launch_fwd(x, a_w, b_w, num_directions, coarse_dilation)
+    softmaxed over R; all contiguous, float32 or bfloat16. The op
+    ``forest_tpu_torch::bank_mix_fwd``: on a CPU tensor
+    :func:`bank_mix_reference`, on a CUDA tensor ``bank_mix_fwd`` on the
+    current stream (f32 accumulation, output in x's dtype) or it raises.
+    Its gradient is :func:`bank_mix_bwd` on either."""
+    _kernel_device("bank_mix", x)
+    return torch.ops.forest_tpu_torch.bank_mix_fwd(
+        x, a_w, b_w, num_directions, coarse_dilation)
 
 
 bank_mix.launches = 0
 bank_mix_bwd.launches = 0
 
 __all__ = ["bank_mix", "bank_mix_bwd", "bank_mix_reference",
-           "bank_mix_bwd_reference", "BankMixFunction",
+           "bank_mix_bwd_reference", "bank_mix_cost", "bank_mix_bwd_cost",
            "depthwise_bank_conv", "sobel_grads"]

@@ -18,6 +18,9 @@ NaN input row lands on index 0, a NaN codebook row is never assigned.
   source; plain version :func:`vq_assign_reference`); ``mxu_bf16=True``
   rounds both operands of the product to bfloat16 and keeps the sums, and
   ``||c||^2``, in float32.
+- Both are ``torch.library`` ops, ``forest_tpu_torch::vq_core`` and
+  ``::vq_assign``, whose FLOP formulas are their declared costs,
+  :func:`vq_core_cost` and :func:`vq_assign_cost` (``utils/flops.py``).
 - Every output of the kernels is reproducible from run to run: counts and
   sums are added in row order without float atomics (the EMA codebook feeds
   the next step's assignment).
@@ -37,8 +40,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from forest_tpu_torch.ops import _library
 from forest_tpu_torch.ops._cuda_build import load_library
 from forest_tpu_torch.parallel import dp
+from forest_tpu_torch.utils.flops import KernelCost
 
 _TILE_ROWS = 128            # rows of x per block in csrc/vq_tile.cuh
 _SMALL_CODES = 16           # codes per block of the one-launch path
@@ -280,16 +285,47 @@ def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
-def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
-    """-> (idx [N] int32, q [N, D], counts [K], sums [K, D]) in float32, and
-    ``sum(q * x)`` as a fifth value with ``with_qx``. Gradient-free: callers
-    detach the inputs. On a card the outputs are views of one buffer and the
-    kernels' scratch is one more (:func:`vq_core_scratch`); at N up to 128
-    rows (and K up to 2,048) the call is one launch
-    (:func:`vq_core_small`)."""
-    _check("vq_core", x, codebook)
-    if x.device.type == "cpu":
-        return vq_core_reference(x, codebook, with_qx)
+def vq_core_cost(n: int, d: int, k: int, with_qx: bool = False
+                 ) -> KernelCost:
+    """One call of ``vq_core`` on x [n, d] and k codes: the distances'
+    product, 2 n k d FLOPs, and with ``with_qx`` sum(q * x), 2 n d (the
+    statistics' n d adds and ``||c||^2``'s 2 k d are left out, as the
+    kernels' bound has always counted them); x, the codebook and the outputs
+    (idx int32, q, counts, sums, and sum(q * x)) in float32, each once.
+
+    The Pallas estimate (``forest_tpu/ops/vq.py:213``) counts 4 n k d over
+    padded tiles: the TPU kernel forms q and the sums as one-hot products,
+    where this kernel gathers and adds."""
+    return KernelCost(
+        flops=2 * n * k * d + (2 * n * d if with_qx else 0),
+        bytes_accessed=4 * (2 * n * d + 2 * k * d + n + k
+                            + (1 if with_qx else 0)))
+
+
+def vq_assign_cost(n: int, d: int, k: int, mxu_bf16: bool = False
+                   ) -> KernelCost:
+    """One call of ``vq_assign`` on x [n, d] and k codes: the distances'
+    product, 2 n k d FLOPs; x and the codebook read once in float32 and the
+    int32 indices written once. ``mxu_bf16`` changes neither (the kernel
+    rounds the float32 operands in registers): it moves the product onto the
+    tensor cores, whose peak a bound reads it against.
+
+    The Pallas estimate (``forest_tpu/ops/vq.py:292``) is the same formula
+    over tiles padded to 128 rows and codes."""
+    del mxu_bf16
+    return KernelCost(flops=2 * n * k * d,
+                      bytes_accessed=4 * (n * d + k * d + n))
+
+
+def _plain_core(x, codebook, with_qx):
+    out = vq_core_reference(x, codebook, with_qx)
+    return out if with_qx else (*out, torch.zeros(()))
+
+
+def _launch_core(x, codebook, with_qx):
+    """``vq_core_f32`` on the current stream: -> (idx, q, counts, sums,
+    sum(q * x)); the last is left unset where ``with_qx`` is false (the
+    kernel does not write it, and :func:`vq_core` drops it)."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         x = x.float().contiguous()
     if codebook.dtype != torch.float32 or not codebook.is_contiguous():
@@ -298,20 +334,18 @@ def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
     n, d = x.shape
     k = c.shape[0]
     dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
     if n == 0:
-        f32 = dict(dtype=torch.float32, device=dev)
-        out = (torch.empty(0, dtype=torch.int32, device=dev),
-               torch.empty(0, d, **f32), torch.zeros(k, **f32),
-               torch.zeros(k, d, **f32))
-        return (*out, torch.zeros((), **f32)) if with_qx else out
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, d, **f32), torch.zeros(k, **f32),
+                torch.zeros(k, d, **f32), torch.zeros((), **f32))
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return vq_core(x, c, with_qx)
-    # outputs: q | idx | counts | sums | qx, as float32 words; q first, so
-    # that its rows are 16-byte aligned where D is a multiple of 4
-    buf = torch.empty(n * d + n + k + k * d + 1, dtype=torch.float32,
-                      device=dev)
-    base = buf.data_ptr()
+            return _launch_core(x, c, with_qx)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    q, counts = torch.empty(n, d, **f32), torch.empty(k, **f32)
+    sums = torch.empty(k, d, **f32)
+    qx = torch.empty((), **f32)
     nbytes, layout = vq_core_scratch(n, d, k)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     sbase = scratch.data_ptr()
@@ -319,11 +353,10 @@ def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
     small = vq_core_small(n, k)
     segs, seg_rows = (1, n) if small else stats_segments(n)
     stream = torch.cuda.current_stream().cuda_stream
-    o_idx, o_cnt = 4 * n * d, 4 * (n + n * d)
-    o_sums, o_qx = o_cnt + 4 * k, o_cnt + 4 * (k + k * d)
     err = _core_fn()(
-        x.data_ptr(), c.data_ptr(), base + o_idx, base, base + o_cnt,
-        base + o_sums, base + o_qx, ptr.get("part_d"), ptr.get("part_i"),
+        x.data_ptr(), c.data_ptr(), idx.data_ptr(), q.data_ptr(),
+        counts.data_ptr(), sums.data_ptr(), qx.data_ptr(), ptr.get("part_d"),
+        ptr.get("part_i"),
         _barrier(dev, stream).data_ptr() if small else None,
         ptr.get("c2"), ptr.get("cnt_part"), ptr.get("sum_part"),
         ptr["qx_part"], n, d, k, segs, seg_rows, int(bool(with_qx)), stream)
@@ -331,34 +364,43 @@ def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
         raise RuntimeError(f"vq_core launch failed: cudaError {err} "
                            f"(N={n}, D={d}, K={k})")
     vq_core.launches += 1
-    q = buf[:n * d].view(n, d)
-    idx = buf[n * d:n * d + n].view(torch.int32)
-    counts = buf[n * d + n:n * d + n + k]
-    sums = buf[n * d + n + k:n * d + n + k + k * d].view(k, d)
-    if with_qx:
-        return idx, q, counts, sums, buf[-1]
-    return idx, q, counts, sums
+    return idx, q, counts, sums, qx
+
+
+def _fake_core(x, codebook, with_qx):
+    n, d = x.shape
+    k = codebook.shape[0]
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(n, dtype=torch.int32), x.new_empty(n, d, **f32),
+            x.new_empty(k, **f32), x.new_empty(k, d, **f32),
+            x.new_empty((), **f32))
+
+
+_library.define(
+    "vq_core", "(Tensor x, Tensor codebook, bool with_qx) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)", cpu=_plain_core,
+    cuda=_launch_core, fake=_fake_core,
+    flops=lambda x, c, with_qx, out_shape=None: vq_core_cost(
+        *x, c[0], with_qx).flops)
+
+
+def vq_core(x: torch.Tensor, codebook: torch.Tensor, with_qx: bool = False):
+    """-> (idx [N] int32, q [N, D], counts [K], sums [K, D]) in float32, and
+    ``sum(q * x)`` as a fifth value with ``with_qx``. Gradient-free: callers
+    detach the inputs. The op ``forest_tpu_torch::vq_core``; on a card the
+    kernels' scratch is one buffer (:func:`vq_core_scratch`), and at N up to
+    128 rows (and K up to 2,048) the call is one launch
+    (:func:`vq_core_small`)."""
+    _check("vq_core", x, codebook)
+    out = torch.ops.forest_tpu_torch.vq_core(x, codebook, with_qx)
+    return out if with_qx else out[:4]
 
 
 vq_core.launches = 0
 
 
-def vq_assign(x: torch.Tensor, codebook: torch.Tensor, **kw) -> torch.Tensor:
-    """Nearest-code indices [N] (int32), lowest index on ties; float32 by
-    default, bit-consistent with :func:`vq_core`'s assignments.
-    ``mxu_bf16=True`` rounds the product's operands to bfloat16 (near-ties
-    may flip), on the tensor cores of a card. :func:`vq_assign_path` says
-    which product a call runs; ``vq_assign.last_path`` is the last one a
-    launch took."""
-    known = {"mxu_bf16"}
-    bad = set(kw) - known
-    if bad:
-        raise TypeError(f"vq_assign got unexpected kwargs {sorted(bad)}; "
-                        f"accepted: {sorted(known)}")
-    mxu_bf16 = bool(kw.get("mxu_bf16", False))
-    _check("vq_assign", x, codebook)
-    if x.device.type == "cpu":
-        return vq_assign_reference(x, codebook, mxu_bf16)
+def _launch_assign(x, codebook, mxu_bf16):
+    """``vq_assign_f32`` on the current stream, by :func:`vq_assign_path`."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         x = x.float().contiguous()
     c = codebook
@@ -371,7 +413,7 @@ def vq_assign(x: torch.Tensor, codebook: torch.Tensor, **kw) -> torch.Tensor:
         return idx
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
-            return vq_assign(x, c, mxu_bf16=mxu_bf16)
+            return _launch_assign(x, c, mxu_bf16)
     xp, cp = x.data_ptr(), c.data_ptr()
     path = vq_assign_path(n, d, k, mxu_bf16, (xp | cp) % 16 == 0)
     scratch, c2, cb16 = assign_scratch(x.device, k, d, path)
@@ -386,6 +428,33 @@ def vq_assign(x: torch.Tensor, codebook: torch.Tensor, **kw) -> torch.Tensor:
     vq_assign.launches += 1
     vq_assign.last_path = path
     return idx
+
+
+_library.define(
+    "vq_assign", "(Tensor x, Tensor codebook, bool mxu_bf16) -> Tensor",
+    cpu=vq_assign_reference, cuda=_launch_assign,
+    fake=lambda x, codebook, mxu_bf16: x.new_empty(x.shape[0],
+                                                   dtype=torch.int32),
+    flops=lambda x, c, mxu_bf16, out_shape=None: vq_assign_cost(
+        *x, c[0], mxu_bf16).flops)
+
+
+def vq_assign(x: torch.Tensor, codebook: torch.Tensor, **kw) -> torch.Tensor:
+    """Nearest-code indices [N] (int32), lowest index on ties; float32 by
+    default, bit-consistent with :func:`vq_core`'s assignments.
+    ``mxu_bf16=True`` rounds the product's operands to bfloat16 (near-ties
+    may flip), on the tensor cores of a card. The op
+    ``forest_tpu_torch::vq_assign``. :func:`vq_assign_path` says which
+    product a call runs; ``vq_assign.last_path`` is the last one a launch
+    took."""
+    known = {"mxu_bf16"}
+    bad = set(kw) - known
+    if bad:
+        raise TypeError(f"vq_assign got unexpected kwargs {sorted(bad)}; "
+                        f"accepted: {sorted(known)}")
+    _check("vq_assign", x, codebook)
+    return torch.ops.forest_tpu_torch.vq_assign(
+        x, codebook, bool(kw.get("mxu_bf16", False)))
 
 
 vq_assign.launches = 0
@@ -545,5 +614,5 @@ __all__ = [
     "vq_core_launches", "vq_core_scratch", "vq_assign_path",
     "persistent_blocks", "sm_count",
     "resident_shared_bytes", "mma_shared_bytes", "ASSIGN_PATHS",
-    "assign_scratch",
+    "assign_scratch", "vq_core_cost", "vq_assign_cost",
 ]

@@ -19,6 +19,8 @@ A CPU tensor goes to the plain versions :func:`assign_reference` /
 :func:`assign_t_reference`; a CUDA tensor launches the kernel or raises.
 ``make_assign.launches`` / ``make_assign_t.launches`` count the launches of
 all the functions they built. Unlike ``ops.vq``, these have no NaN rule.
+:func:`assign_cost` states one call's work (``utils/flops.py``'s
+``KernelCost``) for the kernels' bound; the sweep's kernels are not ops.
 
     python -m forest_tpu_torch.ops.vq_variants [--iters 20]
 
@@ -41,6 +43,7 @@ from forest_tpu_torch.ops.vq import (ASSIGN_PATHS, _SHARED_BYTES,
                                      assign_scratch, mma_shared_bytes,
                                      persistent_blocks,
                                      resident_shared_bytes, sm_count)
+from forest_tpu_torch.utils.flops import KernelCost
 
 N, D, K = 128 * 1024, 128, 256
 ITERS = 20
@@ -172,6 +175,16 @@ def launch_grid(n: int, sms: int) -> int:
     never a function of the TPU's ``tile``. (The "slab" path runs one block
     per 128.)"""
     return persistent_blocks(n, sms)
+
+
+def assign_cost(n: int, d: int, k: int) -> KernelCost:
+    """One call of a function of :func:`make_assign` or
+    :func:`make_assign_t` on x of n rows of d and k codes: the distances'
+    product, 2 n k d FLOPs; x and the codebook read once in float32 and
+    the int32 output written once. Neither the layout of x nor the TPU's
+    tile changes it. The TPU sweep's kernels state no estimate."""
+    return KernelCost(flops=2 * n * k * d,
+                      bytes_accessed=4 * (n * d + k * d) + 4 * n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -356,7 +369,7 @@ def main(argv=None, device: str = "cuda") -> Dict[str, float]:
 
 
 __all__ = ["make_assign", "make_assign_t", "rows_path", "cols_path",
-           "launch_grid",
+           "launch_grid", "assign_cost",
            "assign_reference",
            "assign_t_reference", "matmul_assign", "timeit", "variants", "main",
            "N", "D", "K"]

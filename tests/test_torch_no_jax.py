@@ -27,7 +27,7 @@ PACKAGE_BLOCKED = BLOCKED + ("PIL",)
 # imported only inside a function, never when a module is imported
 LAZY = ("matplotlib", "PIL")
 SOURCES = sorted((ROOT / "forest_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_op_timing.py"]
 
 
 def _imported_roots(path: Path):
@@ -119,7 +119,9 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/manifest_stack.py",
                  "forest_tpu_torch/data/data_bundle.py",
                  "forest_tpu_torch/data/wire.py",
-                 "chip_smoke.py"):
+                 "forest_tpu_torch/utils/flops.py",
+                 "chip_smoke.py",
+                 "scripts/torch_op_timing.py"):
         assert must in names, must
 
 

@@ -151,11 +151,11 @@ def test_check_index_false_still_checks_on_cpu():
 def test_extract_rows_backward_raises_on_bad_index_on_cpu(bad):
     """The backward skips the host's check only on a card; on the CPU a bad
     index still raises (the forward's gather would have refused it first,
-    so the backward is called here by hand)."""
+    so the op's registered backward is called here by hand)."""
     ctx = SimpleNamespace(saved_tensors=(torch.tensor([[0, bad, 2]]),),
                           n_rows=16, grid_dtype=torch.float32)
     with pytest.raises(IndexError, match="outside"):
-        tsc._ExtractRows.backward(ctx, torch.ones(1, 3, 2))
+        tsc._extract_rows_backward(ctx, torch.ones(1, 3, 2))
     grid = torch.zeros(1, 16, 2, requires_grad=True)
     with pytest.raises((IndexError, RuntimeError)):
         tsc.extract_rows(grid, torch.tensor([[0, bad, 2]])).sum().backward()
