@@ -287,7 +287,28 @@ Phases, each of which passes or raises (any failure exits non-zero):
     operator. Printed: each step's GFLOP by operator, and its MFU
     (``utils.flops.mfu_fields``) over phase 8's and phase 12's median step
     times against the H100's dense peaks, with the card's name and power
-    limit; the reference's implied MFU on its A40 at 1.1 s a batch.
+    limit; the reference's implied MFU on its A40 at 1.1 s a batch;
+22. the examples and the training launcher (``examples_and_check``), on
+    phase 14's cube and bindings and phase 19's legacy cube: every
+    ``examples/torch_*.py`` loaded through ``runpy`` and its ``main`` run
+    in this process with ``argv`` set, first on ``cuda`` and then with
+    ``--device cpu``, the launch counts set to 0 before the first and read
+    after the last; each card run held to its CPU run: every printed value
+    (losses and means within 1e-5 relative, counts, shapes, indices and
+    text equal; the encoders' block outputs within the kernels' float32
+    bound of their largest value, the VQ indices equal; stats JSONs with
+    the univariate entries equal and covariances within 1e-6) and the
+    quickstart's 10 VQ-VAE and 2 FRL steps (losses within 1e-4, gradient
+    norms within 1e-4; the CPU's FRL run drawing on the card,
+    ``train(draw_device=...)``; several steps, not phase 8's one) and its
+    probe's R^2 within 1e-4; then
+    ``torch_example_compute_stats.py --bindings`` at its full width,
+    patches of 256 over phase 14's cube, on the card and on the CPU (the
+    same stats); and ``scripts/train_gpu.sh vq`` on configs/vae_v0.yaml,
+    one epoch of a few steps, then the same command for two epochs, which
+    must resume at epoch 1. Printed: each example's seconds on the card
+    and on the CPU, the stats step's, the launcher's, and K1-K4's
+    launches, with the card's name and power limit.
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -313,7 +334,8 @@ the FRL training CLI and, for K1, the eval, clustering and diagnostics
 tools and the encoder on the built cube; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep; for K1-K4 the data-parallel ranks of phase 19; for
-K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder),
+K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder;
+for K1-K4 phase 22's examples),
 error, times, and its bound: the larger of its declared bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 declared FLOPs over 67 TFLOP/s (float32 outside the tensor cores; 989
@@ -334,6 +356,7 @@ keeps its own copy of.
 from __future__ import annotations
 
 import json
+import math
 import pickle
 import subprocess
 import sys
@@ -4027,10 +4050,13 @@ def _params_rel(got: dict, want: dict) -> float:
     return (d2 / max(w2, 1e-30)) ** 0.5
 
 
-def _same_history(got: list, want: list, label: str) -> dict:
-    """Every loss within STEP_LOSS_REL_BOUND and the gradient norm within
-    STEP_GNORM_REL_BOUND (relative, of values above 1e-6); the largest
-    relative difference over every other key too, reported."""
+def _same_history(got: list, want: list, label: str,
+                  loss_bound: float = STEP_LOSS_REL_BOUND,
+                  gnorm_bound: float = STEP_GNORM_REL_BOUND) -> dict:
+    """Every loss within ``loss_bound`` and the gradient norm within
+    ``gnorm_bound`` (relative, of values above 1e-6; phase 8's bounds
+    unless given); the largest relative difference over every other key
+    too, reported."""
     if [h["epoch"] for h in got] != [h["epoch"] for h in want]:
         raise AssertionError(f"{label}: epochs {got} against {want}")
     worst = {"loss": 0.0, "grad_norm": 0.0, "other": 0.0}
@@ -4044,10 +4070,9 @@ def _same_history(got: list, want: list, label: str) -> dict:
             kind = ("loss" if "loss_" in k else
                     "grad_norm" if k.endswith("grad_norm") else "other")
             worst[kind] = max(worst[kind], _rel(g[k], v))
-    if worst["loss"] > STEP_LOSS_REL_BOUND or \
-            worst["grad_norm"] > STEP_GNORM_REL_BOUND:
-        raise AssertionError(f"{label}: {worst} (bounds "
-                             f"{STEP_LOSS_REL_BOUND}, {STEP_GNORM_REL_BOUND})")
+    if worst["loss"] > loss_bound or worst["grad_norm"] > gnorm_bound:
+        raise AssertionError(f"{label}: {worst} (bounds {loss_bound}, "
+                             f"{gnorm_bound})")
     return worst
 
 
@@ -4915,6 +4940,277 @@ def flops_and_check(frl_step_ms: float, vq_step_ms: float,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the examples and the training launcher
+# ---------------------------------------------------------------------------
+EXAMPLES = ("torch_example_losses.py", "torch_example_encoders.py",
+            "torch_check_evt_tau.py", "torch_example_compute_stats.py",
+            "torch_example_dataset.py", "torch_example_quickstart.py")
+# The quickstart trains 10 VQ-VAE steps and 2 FRL steps (then validates
+# and fits a probe) on the card and on the CPU from the same weights,
+# batches and draws (the CPU's FRL run draws on the card:
+# ``train(draw_device=...)``). Phase 8's bounds hold one step; over
+# several, float32 sums in another order reach Adam's normalised updates,
+# which move a parameter whose gradient is rounding noise by up to the
+# learning rate either way, and the next step's losses read that. Measured
+# on an H100: the FRL losses 8.8e-6 apart (phase 8's bound is 1e-5), the
+# VQ-VAE's 1.0e-7, the gradient norms 1.4e-7, the probe's R^2 6.1e-7; the
+# bounds leave a ten-fold margin on the losses.
+QUICKSTART_LOSS_REL_BOUND = 1e-4
+QUICKSTART_GNORM_REL_BOUND = STEP_GNORM_REL_BOUND
+QUICKSTART_R2_BOUND = 1e-4        # the probe's R^2, absolute
+STATS_COV_REL_BOUND = 1e-6        # tests/test_torch_train_representation.py
+LAUNCHER = "scripts/train_gpu.sh"
+LAUNCHER_STEPS = 5                # a VQ-VAE epoch of the launcher's runs
+
+
+def run_example(script: str, argv) -> dict:
+    """``examples/<script>`` loaded through ``runpy`` and its ``main`` run
+    in this process with ``argv`` (``sys.argv`` set alike), its printed
+    lines kept. -> {"out": what main returned, "printed", "lines" (its
+    ``LINES``), "seconds"}."""
+    import contextlib
+    import io
+    import re
+    import runpy
+
+    path = ROOT / "examples" / script
+    mod = runpy.run_path(str(path), run_name="chip_smoke_example")
+    buf, argv_before = io.StringIO(), sys.argv
+    sys.argv = [str(path), *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod["main"](list(argv))
+        _sync(argv[argv.index("--device") + 1])
+    finally:
+        sys.argv = argv_before
+    printed = buf.getvalue()
+    # a printed NaN, not the letters in a temporary directory's name
+    if not printed.strip() or re.search(r"\bnan\b", printed.lower()):
+        raise AssertionError(f"{script} {argv} printed:\n{printed}")
+    return {"out": out, "printed": printed, "lines": mod["LINES"],
+            "seconds": time.perf_counter() - t0}
+
+
+def _values_err(card, cpu, where: str) -> float:
+    """The largest relative difference of two returned values: floats
+    relative to the larger magnitude, arrays of floats to the largest
+    magnitude; anything else (counts, shapes, indices, text) equal."""
+    import numpy as np
+    if isinstance(card, float) or isinstance(cpu, float):
+        if card == cpu:
+            return 0.0
+        return abs(card - cpu) / max(abs(card), abs(cpu))
+    if isinstance(card, np.ndarray) and card.dtype.kind == "f":
+        scale = max(float(np.abs(cpu).max()), 1e-30)
+        return float(np.abs(card - cpu).max()) / scale
+    same = (np.array_equal(card, cpu) if isinstance(card, np.ndarray)
+            else card == cpu)
+    if not same:
+        raise AssertionError(f"{where}: {card!r} on the card, {cpu!r} on "
+                             "the CPU")
+    return 0.0
+
+
+def _same_lines(card: dict, cpu: dict, lines: dict, label: str,
+                skip=()) -> float:
+    """Every printed value of two runs of one example (temporary paths and
+    the fields of ``skip`` aside) -> the largest relative difference."""
+    worst = 0.0
+    for key in lines:
+        if key not in card and key not in cpu:
+            continue
+        a, b = card[key], cpu[key]
+        a, b = (a, b) if isinstance(a, list) else ([a], [b])
+        if len(a) != len(b):
+            raise AssertionError(f"{label} {key}: {len(a)} lines on the "
+                                 f"card, {len(b)} on the CPU")
+        for va, vb in zip(a, b):
+            for field, v in va.items():
+                if field != "path" and (key, field) not in skip:
+                    worst = max(worst, _values_err(v, vb[field],
+                                                   f"{label} {key}.{field}"))
+    return worst
+
+
+def same_stats(card: dict, cpu: dict, label: str) -> float:
+    """Two stats JSONs: the univariate entries (host numpy over the same
+    patches) equal, covariances and means within STATS_COV_REL_BOUND (the
+    features built on the device) -> the largest relative difference."""
+    import numpy as np
+    if list(card) != list(cpu):
+        raise AssertionError(f"{label}: features {list(card)} / {list(cpu)}")
+    worst = 0.0
+    for fname, entries in cpu.items():
+        for ref, entry in entries.items():
+            got = card[fname][ref]
+            if ref != "__covariance__":
+                if got != entry:
+                    raise AssertionError(f"{label} {fname} {ref}: {got} on "
+                                         f"the card, {entry} on the CPU")
+                continue
+            for k in ("matrix", "mean"):
+                a, b = np.asarray(got[k]), np.asarray(entry[k])
+                worst = max(worst, float(np.abs(a - b).max())
+                            / max(float(np.abs(b).max()), 1e-30))
+            if got["n"] != entry["n"]:
+                raise AssertionError(f"{label} {fname}: n {got['n']} / "
+                                     f"{entry['n']}")
+    if worst > STATS_COV_REL_BOUND:
+        raise AssertionError(f"{label}: covariance {worst:.3g} apart "
+                             f"(bound {STATS_COV_REL_BOUND})")
+    return worst
+
+
+def same_example(script: str, card: dict, cpu: dict) -> dict:
+    """Hold an example's card run to its CPU run. -> the largest relative
+    differences by kind."""
+    import numpy as np
+    a, b, lines = card["out"], cpu["out"], card["lines"]
+    err = {}
+    if script == "torch_example_encoders.py":
+        # the printed means are the tensors' below; z_e and every block's
+        # output within the kernels' float32 bound of their largest value
+        err["lines"] = _same_lines(a, b, lines, script, skip={
+            ("smoothing", "gate_mean"), ("film", "gamma_mean"),
+            ("film", "beta_mean")})
+        err["tensors"] = max(_values_err(a["tensors"][k], b["tensors"][k],
+                                         f"{script} {k}")
+                             for k in b["tensors"])
+        bound = F32_BOUND
+    elif script == "torch_example_quickstart.py":
+        err["vqvae"] = _same_history(
+            a["vqvae_history"], b["vqvae_history"], "quickstart VQ-VAE",
+            QUICKSTART_LOSS_REL_BOUND, QUICKSTART_GNORM_REL_BOUND)
+        err["frl"] = _same_history(
+            a["frl_history"], b["frl_history"], "quickstart FRL",
+            QUICKSTART_LOSS_REL_BOUND, QUICKSTART_GNORM_REL_BOUND)
+        r2 = float(np.abs(np.asarray(a["probe"]["r2_val"])
+                          - np.asarray(b["probe"]["r2_val"])).max())
+        if not r2 <= QUICKSTART_R2_BOUND:
+            raise AssertionError(f"quickstart: the probe's R^2 {r2:.3g} "
+                                 f"apart (bound {QUICKSTART_R2_BOUND})")
+        err["probe_r2_abs"] = r2
+        return err
+    else:
+        err["lines"] = _same_lines(a, b, lines, script)
+        bound = STEP_LOSS_REL_BOUND
+    if script == "torch_example_losses.py":
+        _values_err(a["vq_indices"], b["vq_indices"], "losses vq indices")
+    if "stats" in b:
+        err["stats"] = same_stats(a["stats"], b["stats"], script)
+    if max(err.get("lines", 0.0), err.get("tensors", 0.0)) > bound:
+        raise AssertionError(f"{script}: {err} apart (bound {bound})")
+    return err
+
+
+def _launcher(zarr: Path, run_dir: Path, epochs: int, log_path: Path,
+              device: str):
+    """``scripts/train_gpu.sh vq`` on configs/vae_v0.yaml, started."""
+    log_ = open(log_path, "w")
+    try:
+        return subprocess.Popen(
+            ["bash", str(ROOT / LAUNCHER), "vq",
+             str(ROOT / "configs/vae_v0.yaml"), str(zarr), str(run_dir),
+             "--epochs", str(epochs), "--steps-per-epoch",
+             str(LAUNCHER_STEPS), "--device", device],
+            cwd=log_path.parent, stdout=log_, stderr=subprocess.STDOUT,
+            env=_dp_env(PYTHON=sys.executable))
+    finally:
+        log_.close()
+
+
+def _launcher_done(proc, log_path: Path, run_dir: Path, epochs: list,
+                   t0: float) -> float:
+    """Wait for a launcher run; its history must hold ``epochs``."""
+    try:
+        rc = proc.wait(timeout=DP_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"{LAUNCHER} exited {rc}:\n"
+                             + log_path.read_text()[-4000:])
+    rows = json.loads((run_dir / "history.json").read_text())
+    if [r["epoch"] for r in rows] != epochs or not all(
+            math.isfinite(r["train/loss_total"]) for r in rows):
+        raise AssertionError(f"{LAUNCHER}: history {rows}")
+    return time.perf_counter() - t0
+
+
+def examples_and_check(tmp: Path, device: str = "cuda") -> dict:
+    """Phase 22 on phase 14's cube and bindings and phase 19's legacy cube
+    in ``tmp``: every example on ``device`` and on the CPU, held together,
+    with the launch counts set to 0 just before the first and read just
+    after the last; the stats step at full width on both; the launcher's
+    VQ-VAE run and its resume."""
+    import yaml
+
+    t_start = time.perf_counter()
+    work = tmp / "examples"
+    work.mkdir()
+    run_dir = work / "launcher_run"
+    t0 = time.perf_counter()
+    first = _launcher(tmp / "dp" / "legacy.zarr", run_dir, 1,
+                      work / "launcher_1.log", device)
+
+    from forest_tpu_torch.training import train_representation as tr
+    train_before = tr.train
+    res = {"examples": {}}
+    reset_launches()
+    try:
+        for script in EXAMPLES:
+            card = run_example(script, ["--device", device])
+            if script == "torch_example_quickstart.py":
+                # the CPU's FRL steps draw what the card's drew
+                tr.train = (lambda *a, **kw:
+                            train_before(*a, draw_device=device, **kw))
+            try:
+                cpu = run_example(script, ["--device", "cpu"])
+            finally:
+                tr.train = train_before
+            res["examples"][script] = {
+                "seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+                "rel_err_vs_cpu": same_example(script, card, cpu)}
+    finally:
+        tr.train = train_before
+    res["launches"] = read_launches()
+
+    # the launcher's first run, then the same command one epoch further
+    res["launcher"] = {"seconds": _launcher_done(
+        first, work / "launcher_1.log", run_dir, [0], t0)}
+    t0 = time.perf_counter()
+    second = _launcher(tmp / "dp" / "legacy.zarr", run_dir, 2,
+                       work / "launcher_2.log", device)
+
+    # the required stats step at full width on phase 14's cube
+    raw = yaml.safe_load((tmp / "bindings.yaml").read_text())
+    stats, res["stats_256"] = {}, {}
+    for dev in (device, "cpu"):
+        raw["stats"]["file"] = str(work / f"stats_{dev}.json")
+        bpath = work / f"bindings_{dev}.yaml"
+        bpath.write_text(yaml.safe_dump(raw))
+        r = run_example("torch_example_compute_stats.py",
+                        ["--device", dev, "--bindings", str(bpath)])
+        stats[dev] = r["out"]["stats"]
+        res["stats_256"]["seconds" if dev == device else "cpu_seconds"] = \
+            r["seconds"]
+        res["stats_256"]["patches"] = r["out"]["patches"]
+    res["stats_256"]["rel_err_vs_cpu"] = same_stats(
+        stats[device], stats["cpu"], "stats step at 256")
+
+    res["launcher"]["resume_seconds"] = _launcher_done(
+        second, work / "launcher_2.log", run_dir, [1], t0)
+    if "auto-resumed from epoch 0" not in \
+            (work / "launcher_2.log").read_text():
+        raise AssertionError(f"{LAUNCHER}: the second run did not resume")
+    res["launcher"]["steps"] = LAUNCHER_STEPS
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
 def vq_paths(vqvae_training: int = 0, kernel_check: int = 0,
              variant_sweep: int = 0) -> dict:
     """Launches of a VQ kernel by path: the VQ-VAE's CLI run, the op called
@@ -5059,11 +5355,14 @@ def main() -> int:
         log(f"data parallel: {json.dumps(dpar, default=float)}")
         torch.cuda.empty_cache()
         wire = wire_and_check(Path(d))                        # phase 20
-    log(f"wire, blocks and ladder: {json.dumps(wire, default=float)}")
-    torch.cuda.empty_cache()
-    flops = flops_and_check(train["step_ms_median"],          # phase 21
-                            vqvae["step_ms_median"])
-    log(f"step FLOPs: {json.dumps(flops)}")
+        log(f"wire, blocks and ladder: {json.dumps(wire, default=float)}")
+        torch.cuda.empty_cache()
+        flops = flops_and_check(train["step_ms_median"],      # phase 21
+                                vqvae["step_ms_median"])
+        log(f"step FLOPs: {json.dumps(flops)}")
+        torch.cuda.empty_cache()
+        examples = examples_and_check(Path(d))                # phase 22
+    log(f"examples and launcher: {json.dumps(examples, default=float)}")
 
     log(f"K1 f32 at {list(SERVE_SHAPE)}: {f32['ms']:.4f} ms, plain "
         f"{f32['plain_ms']:.4f} ms, bf16 {bf16['ms']:.4f} ms; at "
@@ -5296,8 +5595,23 @@ def main() -> int:
         f"median): {json.dumps(fv['mfu'])}; the card's and the CPU's counts "
         f"equal: FRL at B {ff['parity_batch']} {ff['parity_flops']}, "
         f"VQ-VAE {fv['parity_flops']} FLOPs ({card})")
+    ex = examples["examples"]
+    log("examples on the card (s, the CPU's after the slash): " + ", ".join(
+        f"{k} {v['seconds']:.2f} / {v['cpu_seconds']:.2f}"
+        for k, v in ex.items())
+        + f"; the stats step at 256^2 on the {CLI_CUBE_HW}^2 cube "
+        f"({examples['stats_256']['patches']} patches) "
+        f"{examples['stats_256']['seconds']:.2f} s (CPU "
+        f"{examples['stats_256']['cpu_seconds']:.2f} s); {LAUNCHER} vq "
+        f"{examples['launcher']['seconds']:.2f} s for {LAUNCHER_STEPS} "
+        f"steps, resumed {examples['launcher']['resume_seconds']:.2f} s; "
+        f"phase 22 {examples['seconds']:.2f} s; K1-K4 launches "
+        + json.dumps({k: examples["launches"][k] for k in
+                      ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
+                       "vq_core")}) + f" ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
+    ex_launches = examples["launches"]
     kernels = [
         kernel_entry("bank_mix_fwd", bf16,
                      {"serving": serve["launches"],
@@ -5311,7 +5625,8 @@ def main() -> int:
                                           "phase_diagnostics")),
                       "cube_building": cube["k1"]["launches"],
                       "data_parallel": g2["launches"]["bank_mix_fwd"],
-                      "wire_frl": wf["launches"]["bank_mix_fwd"]},
+                      "wire_frl": wf["launches"]["bank_mix_fwd"],
+                      "examples": ex_launches["bank_mix_fwd"]},
                      f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"],
                      f32_bound_ms=f32["bound_ms"],
                      train_shape_ms=fwd_train["ms"],
@@ -5324,7 +5639,8 @@ def main() -> int:
                      {"serving": 0, "training": steps["bank_mix_bwd"],
                       "training_cli": cli["launches"]["bank_mix_bwd"],
                       "data_parallel": g2["launches"]["bank_mix_bwd"],
-                      "wire_frl": wf["launches"]["bank_mix_bwd"]},
+                      "wire_frl": wf["launches"]["bank_mix_bwd"],
+                      "examples": ex_launches["bank_mix_bwd"]},
                      f32_ms=bwd_f32["ms"], f32_plain_ms=bwd_f32["plain_ms"],
                      f32_bound_ms=bwd_f32["bound_ms"],
                      f32_max_abs_err=bwd_f32["max_abs_err"]),
@@ -5332,7 +5648,8 @@ def main() -> int:
                      {"serving": 0, "training": steps["scatter_add_rows"],
                       "training_cli": cli["launches"]["scatter_add_rows"],
                       "data_parallel": g2["launches"]["scatter_add_rows"],
-                      "wire_frl": wf["launches"]["scatter_add_rows"]},
+                      "wire_frl": wf["launches"]["scatter_add_rows"],
+                      "examples": ex_launches["scatter_add_rows"]},
                      checked_ms=scat["checked_ms"],
                      back_to_back_ms=scat["back_to_back_ms"],
                      library_back_to_back_ms=scat[
@@ -5342,7 +5659,8 @@ def main() -> int:
             kernel_check=core["path_launches"]),
             data_parallel=g2["launches"]["vq_core"],
             wire_vqvae=sum(r["launches"] for r in wv["runs"].values()),
-            ladder=sum(r["launches"] for r in wl.values())),
+            ladder=sum(r["launches"] for r in wl.values()),
+            examples=ex_launches["vq_core"]),
             with_qx_ms=core["with_qx_ms"], library_is=core["library_is"],
             idx_mismatch_rows=core["idx_mismatch_rows"],
             idx_mismatch_rows_vs_cpu=core["idx_mismatch_rows_vs_cpu"],
@@ -5385,7 +5703,7 @@ def main() -> int:
              for path, n in k["launches_by_path"].items()
              if path != "serving" and n <= 0]
     idle += [f"vq_core on {path}" for path in
-             ("data_parallel", "wire_vqvae", "ladder")
+             ("data_parallel", "wire_vqvae", "ladder", "examples")
              if kernels[3]["launches_by_path"][path] <= 0]
     if idle or [k["name"] for k in kernels] != list(KERNELS):
         raise AssertionError(f"kernels never launched on their path: {idle}")

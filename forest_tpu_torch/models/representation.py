@@ -152,7 +152,7 @@ class RepresentationModel(nn.Module):
 
 
 @torch.no_grad()
-def init_parameters(model: RepresentationModel,
+def init_parameters(model: nn.Module,
                     generator: torch.Generator) -> None:
     """Random weights as flax initialises them: conv / dense kernels
     N(0, 1/fan_in) (LeCun normal, untruncated), zero biases, unit GroupNorm
@@ -160,10 +160,14 @@ def init_parameters(model: RepresentationModel,
     1, beta bias 0. The counterpart of the JAX package's
     ``init_variables`` (``forest_tpu/models/representation.py``), which
     initialises every subtree in one pass too, from a ``jax.random`` key:
-    a seed here does not give the JAX weights.
+    a seed here does not give the JAX weights. ``model`` is a
+    :class:`RepresentationModel` or any of its blocks.
     ``generator`` is a CPU generator, so a seed gives the same weights on
     every device."""
-    film_out = {model.phase_film.gamma_1: 1.0, model.phase_film.beta_1: 0.0}
+    film_out = {}
+    for film in model.modules():
+        if isinstance(film, FiLMLayer):
+            film_out.update({film.gamma_1: 1.0, film.beta_1: 0.0})
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = mod.weight

@@ -12,8 +12,9 @@ split.
 What belongs to PyTorch:
 
 - the random source of step i is a ``torch.Generator`` on the training
-  device seeded with ``rng_seed * 100003 + i``, the integer the JAX loop
-  turns into its key (``generator.initial_seed()`` gives it back);
+  device (or on ``draw_device``, see :func:`run_epoch`) seeded with
+  ``rng_seed * 100003 + i``, the integer the JAX loop turns into its key
+  (``generator.initial_seed()`` gives it back);
 - batches cross to the device in the loader's consumer thread through
   ``data.loader.make_device_put`` (pinned memory, ``non_blocking``);
 - metrics stay on the device and drain every ``_METRIC_SYNC_STEPS`` steps
@@ -76,7 +77,7 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
               train: bool, num_workers: int = 4,
               max_batches: Optional[int] = None, device="cuda",
               mesh=None, wire_compact: bool = False,
-              wire_skip: tuple = ()):
+              wire_skip: tuple = (), draw_device=None):
     """Returns (state_or_params, mean-metrics dict incl. timing).
 
     ``step_fn`` is ``train_step.make_train_step``'s (``train``) or
@@ -84,7 +85,9 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
     ``mesh`` has several ranks; ``weights`` / ``curriculum`` are passed to
     it as given (the CLI makes them device scalars once per epoch).
     ``wire_compact`` / ``wire_skip``: the compact wire (module
-    docstring)."""
+    docstring). ``draw_device``: the device of each step's random source
+    (``device`` when None); a CPU run with ``draw_device="cuda"`` draws
+    what the same run on a card draws."""
     device = torch.device(device)
     rows = local_rows(batch_size, mesh)     # raises if B % world
     wire = wire_compact and (mesh is None or mesh.world_size == 1)
@@ -115,7 +118,8 @@ def run_epoch(dataset, step_fn: Callable, state_or_params, *,
         return _run_epoch_loop(loader, step_fn, state_or_params,
                                weights=weights, curriculum=curriculum,
                                rng_seed=rng_seed, train=train,
-                               valid_counts=valid_counts, device=device)
+                               valid_counts=valid_counts,
+                               draw_device=draw_device or device)
     finally:
         loader.close()
         if layout:
@@ -146,7 +150,7 @@ class _Batches:
 
 
 def _run_epoch_loop(loader, step_fn, state_or_params, *, weights,
-                    curriculum, rng_seed, train, valid_counts, device):
+                    curriculum, rng_seed, train, valid_counts, draw_device):
     agg: Dict[str, float] = {}
     pending: list = []  # (weight, on-device metrics) awaiting a block fetch
     n_steps = 0
@@ -157,7 +161,7 @@ def _run_epoch_loop(loader, step_fn, state_or_params, *, weights,
     for i, batch in enumerate(loader):
         wait_t += time.perf_counter() - t_wait
         t_step = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(
+        gen = torch.Generator(device=draw_device).manual_seed(
             rng_seed * 100003 + i)
         if train:
             state_or_params, m = step_fn(state_or_params, batch, gen,

@@ -276,7 +276,11 @@ def train(cfg: TrainingConfiguration,
           max_batches: Optional[int] = None,
           resume: bool = True,
           init_from: Optional[str] = None,
-          device="cuda") -> Dict[str, Any]:
+          device="cuda", *, draw_device=None) -> Dict[str, Any]:
+    """Train for ``cfg.epoch.num_epochs`` epochs on ``device``; returns the
+    training context with the final ``state`` and the ``history``.
+    ``draw_device``: the device of the steps' random source (``device``
+    when None; ``loops.run_epoch``)."""
     _check_device(torch.device(device))
     mesh = _data_parallel_mesh(cfg, device)
     exp_dir = cfg.run.experiment_dir
@@ -384,7 +388,7 @@ def train(cfg: TrainingConfiguration,
                 curriculum=curriculum, rng_seed=cfg.seed + epoch,
                 num_workers=cfg.hardware.num_workers,
                 max_batches=max_batches, device=device, mesh=mesh,
-                wire_skip=wire_skip)
+                wire_skip=wire_skip, draw_device=draw_device)
 
         val_m = None
         if val_every and epoch % val_every == 0:
@@ -396,7 +400,8 @@ def train(cfg: TrainingConfiguration,
                 rng_seed=1_000_000 + epoch,
                 num_workers=cfg.hardware.num_workers,
                 max_batches=val_cfg.get("max_batches", max_batches),
-                device=device, mesh=mesh, wire_skip=wire_skip)
+                device=device, mesh=mesh, wire_skip=wire_skip,
+                draw_device=draw_device)
 
         # the logged rate is the schedule at the step count (skipped steps
         # included), as the JAX CLI logs it

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under forest_tpu_torch/ nor chip_smoke.py
-imports jax, flax, optax or the JAX package forest_tpu, nor scikit-learn or
+"""The port stands alone: nothing under forest_tpu_torch/, chip_smoke.py nor
+the port's examples (examples/torch_*.py) imports jax, flax, optax or the
+JAX package forest_tpu, nor scikit-learn or
 ml_dtypes (JAX's bfloat16 for numpy; the compact wire, data/wire.py, rounds
 to bfloat16 with torch), which the card's machine does not have; matplotlib,
 which it does not have either, is imported only inside the functions that
@@ -13,6 +14,7 @@ blocked in ``sys.modules`` (an import of a blocked name raises ImportError
 there).
 """
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -26,8 +28,11 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "forest_tpu", "sklearn",
 PACKAGE_BLOCKED = BLOCKED + ("PIL",)
 # imported only inside a function, never when a module is imported
 LAZY = ("matplotlib", "PIL")
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 SOURCES = sorted((ROOT / "forest_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_op_timing.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_op_timing.py"] \
+    + EXAMPLES
+LAUNCHER = ROOT / "scripts" / "train_gpu.sh"
 
 
 def _imported_roots(path: Path):
@@ -121,7 +126,13 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/wire.py",
                  "forest_tpu_torch/utils/flops.py",
                  "chip_smoke.py",
-                 "scripts/torch_op_timing.py"):
+                 "scripts/torch_op_timing.py",
+                 "examples/torch_example_losses.py",
+                 "examples/torch_example_encoders.py",
+                 "examples/torch_check_evt_tau.py",
+                 "examples/torch_example_compute_stats.py",
+                 "examples/torch_example_dataset.py",
+                 "examples/torch_example_quickstart.py"):
         assert must in names, must
 
 
@@ -136,7 +147,9 @@ mods = ["forest_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     forest_tpu_torch.__path__, "forest_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke
+import chip_smoke, runpy
+for path in {[str(p) for p in EXAMPLES]!r}:
+    runpy.run_path(path, run_name="port_example")
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED + LAZY!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
@@ -147,6 +160,22 @@ print("imported", len(mods))
                           text=True, timeout=300, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
+
+
+def test_gpu_launcher_runs_the_port():
+    """scripts/train_gpu.sh parses, launches the port's CLIs and nothing of
+    the JAX package, and refuses an unknown mode with exit code 2."""
+    text = LAUNCHER.read_text()
+    subprocess.run(["bash", "-n", str(LAUNCHER)], check=True, timeout=60)
+    modules = set(re.findall(r"\b(forest_tpu\w*)\.([\w.]+)", text))
+    assert {m for m in modules if m[0] == "forest_tpu_torch"} == {
+        ("forest_tpu_torch", "training.train_representation"),
+        ("forest_tpu_torch", "training.train_vqvae")}
+    assert not [m for m in modules if m[0] != "forest_tpu_torch"], modules
+    proc = subprocess.run(["bash", str(LAUNCHER), "bogus"],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 2, proc
+    assert "unknown mode: bogus" in proc.stderr
 
 
 def test_native_decoder_is_the_ports_own_and_matches_python(tmp_path):
