@@ -1,0 +1,6 @@
+"""FRL patches trained over the whole window, a second."""
+from gpu_bench.metrics import _read
+
+
+def read(run):
+    return _read.rate(run)
