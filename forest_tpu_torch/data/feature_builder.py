@@ -13,7 +13,8 @@ layout:
 - Mahalanobis whitening when the feature asks for covariance.
 
 ``group_data`` values are tensors (or arrays, taken to the CPU) with any
-leading batch dims; the output lies on the device of the input.
+leading batch dims; the output lies on the device of the input. Each build
+runs in the span ``data.features`` (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from forest_tpu_torch.data.bindings import (BindingsConfig, FeatureConfig,
                                             NormalizationPresetConfig)
 from forest_tpu_torch.data.transforms import apply_transform
 from forest_tpu_torch.ops.whitening import apply_whitening, whitening_matrix
+from forest_tpu_torch.utils.spans import span
 
 
 # the JAX FeatureBuilder's defaults, which every caller uses
@@ -104,39 +106,40 @@ class FeatureBuilder:
                       group_data: Dict[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (x [.., H, W, C] or [.., T, H, W, C], bool mask of x's shape)."""
-        fc = self.bindings.get_feature(feature_name)
-        chans, masks = [], []
-        for ref, spec in fc.channels.items():
-            x = self._group_channel(group_data, ref)
-            valid = torch.isfinite(x)
-            if spec.mask:
-                m = self._group_channel(group_data, spec.mask)
-                # spatial -> temporal broadcast when needed
-                if fc.temporal and m.dim() == x.dim() - 1:
-                    m = m.unsqueeze(-3).expand(x.shape)
-                elif fc.temporal and m.dim() == x.dim() and \
-                        m.shape != x.shape:
-                    m = m.expand(x.shape)
-                valid = valid & (m > 0)
-            if spec.transform:
-                x = apply_transform(spec.transform, x)
-                valid = valid & torch.isfinite(x)
-            preset = self.bindings.get_normalization_preset(spec.norm)
-            st = self.channel_stats(feature_name, ref)
-            zero = torch.zeros_like(x)
-            x = self._normalize(torch.where(valid, x, zero), preset, st)
-            chans.append(torch.where(valid, x, zero))
-            masks.append(valid)
-        x = torch.stack(chans, dim=-1)
-        mask = torch.stack(masks, dim=-1)
+        with span("data.features"):
+            fc = self.bindings.get_feature(feature_name)
+            chans, masks = [], []
+            for ref, spec in fc.channels.items():
+                x = self._group_channel(group_data, ref)
+                valid = torch.isfinite(x)
+                if spec.mask:
+                    m = self._group_channel(group_data, spec.mask)
+                    # spatial -> temporal broadcast when needed
+                    if fc.temporal and m.dim() == x.dim() - 1:
+                        m = m.unsqueeze(-3).expand(x.shape)
+                    elif fc.temporal and m.dim() == x.dim() and \
+                            m.shape != x.shape:
+                        m = m.expand(x.shape)
+                    valid = valid & (m > 0)
+                if spec.transform:
+                    x = apply_transform(spec.transform, x)
+                    valid = valid & torch.isfinite(x)
+                preset = self.bindings.get_normalization_preset(spec.norm)
+                st = self.channel_stats(feature_name, ref)
+                zero = torch.zeros_like(x)
+                x = self._normalize(torch.where(valid, x, zero), preset, st)
+                chans.append(torch.where(valid, x, zero))
+                masks.append(valid)
+            x = torch.stack(chans, dim=-1)
+            mask = torch.stack(masks, dim=-1)
 
-        wm = self._whitening_for(feature_name, fc)
-        if wm is not None:
-            w, mean = wm
-            x = apply_whitening(x, torch.as_tensor(w, device=x.device),
-                                torch.as_tensor(mean, device=x.device),
-                                mask, clip=WHITEN_CLIP)
-        return x, mask
+            wm = self._whitening_for(feature_name, fc)
+            if wm is not None:
+                w, mean = wm
+                x = apply_whitening(x, torch.as_tensor(w, device=x.device),
+                                    torch.as_tensor(mean, device=x.device),
+                                    mask, clip=WHITEN_CLIP)
+            return x, mask
 
     def build_feature_at_locations(self, feature_name: str,
                                    group_data: Dict[str, torch.Tensor],
@@ -150,25 +153,27 @@ class FeatureBuilder:
         [B, N, 2] (row, col). Returns ([B, N, C], mask) or, for a temporal
         feature, ([B, N, T, C], mask): what indexing the full-grid build at
         ``coords`` gives."""
-        coords = coords.long()
-        rows, cols = coords[..., 0], coords[..., 1]
-        sub = {}
-        for gname, arr in group_data.items():
-            if gname.startswith("__"):
-                continue
-            a = torch.as_tensor(arr)
-            bidx = torch.arange(a.shape[0], device=a.device)[:, None]
-            r, c = rows.to(a.device), cols.to(a.device)
-            if a.dim() == 4:    # [B, H, W, C] -> [B, N, 1, C] fake grid
-                sub[gname] = a[bidx, r, c][:, :, None, :]
-            else:               # [B, T, H, W, C] -> [B, T, N, 1, C]
-                picked = a.permute(0, 2, 3, 1, 4)[bidx, r, c]  # [B, N, T, C]
-                sub[gname] = picked.permute(0, 2, 1, 3)[:, :, :, None, :]
-        x, mask = self.build_feature(feature_name, sub)
-        if self.bindings.get_feature(feature_name).temporal:
-            return (x[:, :, :, 0, :].permute(0, 2, 1, 3),
-                    mask[:, :, :, 0, :].permute(0, 2, 1, 3))
-        return x[:, :, 0, :], mask[:, :, 0, :]
+        with span("data.features"):
+            coords = coords.long()
+            rows, cols = coords[..., 0], coords[..., 1]
+            sub = {}
+            for gname, arr in group_data.items():
+                if gname.startswith("__"):
+                    continue
+                a = torch.as_tensor(arr)
+                bidx = torch.arange(a.shape[0], device=a.device)[:, None]
+                r, c = rows.to(a.device), cols.to(a.device)
+                if a.dim() == 4:    # [B, H, W, C] -> [B, N, 1, C] fake grid
+                    sub[gname] = a[bidx, r, c][:, :, None, :]
+                else:               # [B, T, H, W, C] -> [B, T, N, 1, C]
+                    # [B, N, T, C]
+                    picked = a.permute(0, 2, 3, 1, 4)[bidx, r, c]
+                    sub[gname] = picked.permute(0, 2, 1, 3)[:, :, :, None, :]
+            x, mask = self.build_feature(feature_name, sub)
+            if self.bindings.get_feature(feature_name).temporal:
+                return (x[:, :, :, 0, :].permute(0, 2, 1, 3),
+                        mask[:, :, :, 0, :].permute(0, 2, 1, 3))
+            return x[:, :, 0, :], mask[:, :, 0, :]
 
 
 __all__ = ["FeatureBuilder"]

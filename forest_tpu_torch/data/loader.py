@@ -16,6 +16,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
+from forest_tpu_torch.utils.spans import span
+
 
 class PrefetchLoader:
     """Iterate ``sampler`` (yielding index arrays), mapping each through
@@ -25,6 +27,10 @@ class PrefetchLoader:
     it runs on the consumer thread right before yielding, so the H2D copy of
     batch i+1 overlaps step i's compute (CUDA copies and launches are
     asynchronous).
+
+    While a profiler runs, each worker's ``load_batch`` is a
+    ``loader.load`` span and each ``device_put`` a ``loader.h2d`` span
+    (``utils.spans``).
     """
 
     def __init__(self, dataset, sampler: Iterable[np.ndarray],
@@ -58,6 +64,10 @@ class PrefetchLoader:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _load(self, idx):
+        with span("loader.load"):
+            return self.dataset.load_batch(idx)
+
     def __iter__(self) -> Iterator[Any]:
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         stop = threading.Event()
@@ -71,7 +81,7 @@ class PrefetchLoader:
                 for idx in self.sampler:
                     if stop.is_set():
                         break
-                    fut = pool.submit(self.dataset.load_batch, idx)
+                    fut = pool.submit(self._load, idx)
                     # Bounded put with a stop check so an abandoned
                     # iterator doesn't leave this thread blocked forever.
                     while not stop.is_set():
@@ -113,7 +123,8 @@ class PrefetchLoader:
                     raise fut  # sampler raised mid-epoch: don't truncate
                 batch = fut.result()
                 if self.device_put is not None:
-                    batch = self.device_put(batch)
+                    with span("loader.h2d"):
+                        batch = self.device_put(batch)
                 yield batch
         finally:
             stop.set()

@@ -12,6 +12,10 @@ Port of ``forest_tpu/models/representation.py`` (checkpoint schema VERSION
 - the optional SimCLR projection head on z_type (``project_type``, the
   identity when the config disables it, as the shipped v1 config does).
 
+The type pathway runs in the span ``model.type_encoder``, the phase
+pathway (at locations, and so the dense form too) in ``model.phase_encoder``
+(``utils.spans``).
+
 Module names follow the flax tree, so ``utils.flax_bridge`` carries
 parameters over one to one.
 """
@@ -28,6 +32,7 @@ from forest_tpu_torch.models.conv2d_encoder import (Conv2DEncoder,
 from forest_tpu_torch.models.heads import MLPProjectionHead
 from forest_tpu_torch.models.spatial import EdgeAwareSmoothingConv2D
 from forest_tpu_torch.models.tcn import TCNEncoder
+from forest_tpu_torch.utils.spans import span
 
 VERSION = "4"
 
@@ -101,11 +106,12 @@ class RepresentationModel(nn.Module):
 
         ``deterministic=False`` turns the encoder's dropouts on; their
         uniform draws come from ``draws`` or else from ``generator``."""
-        h = self.encoder(x, input_dropout_rate=input_dropout_rate,
-                         deterministic=deterministic, draws=draws,
-                         generator=generator)
-        return self.spatial_conv(h, min_gate=min_gate,
-                                 return_gate=return_gate)
+        with span("model.type_encoder"):
+            h = self.encoder(x, input_dropout_rate=input_dropout_rate,
+                             deterministic=deterministic, draws=draws,
+                             generator=generator)
+            return self.spatial_conv(h, min_gate=min_gate,
+                                     return_gate=return_gate)
 
     def project_type(self, z_type: torch.Tensor) -> torch.Tensor:
         """SimCLR projection of z_type [..., zt]; identity when disabled."""
@@ -128,11 +134,12 @@ class RepresentationModel(nn.Module):
         caller stops the gradient of ``z_type_pixels``. ``deterministic=
         False`` turns the TCN's dropout on, with ``draws`` from
         ``phase_tcn.draw`` (required then)."""
-        h = self.phase_head(self.phase_tcn(
-            x_phase_pixels, deterministic=deterministic,
-            draws=draws))                                     # [N, T, zp]
-        gamma, beta = self.phase_film(z_type_pixels)          # [N, zp]
-        z = FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
+        with span("model.phase_encoder"):
+            h = self.phase_head(self.phase_tcn(
+                x_phase_pixels, deterministic=deterministic,
+                draws=draws))                                 # [N, T, zp]
+            gamma, beta = self.phase_film(z_type_pixels)      # [N, zp]
+            z = FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
         out = (z,)
         if return_film:
             out = out + (gamma, beta)

@@ -20,6 +20,10 @@ What belongs to PyTorch:
 - metrics stay on the device and drain every ``_METRIC_SYNC_STEPS`` steps
   in one stacked copy to the host, so the loop adds no host
   synchronisation to a step's own;
+- while a profiler runs, the fetch of each batch from the loader is a
+  ``loader.wait`` span and each drain of the metrics an
+  ``epoch.fetch_metrics`` span (``utils.spans``); ``wait_s`` / ``step_s``
+  stay the host clock's;
 - ``wire_compact=True`` puts the compact wire (``data.wire``) on the
   batches: the loader's consumer thread encodes each batch (floats to
   bfloat16 but the groups of ``wire_skip`` and the "categorical" ones)
@@ -50,6 +54,7 @@ import torch
 from forest_tpu_torch.data.loader import PrefetchLoader, make_device_put
 from forest_tpu_torch.data.wire import encode_wire_batch
 from forest_tpu_torch.parallel.mesh import local_rows
+from forest_tpu_torch.utils.spans import span
 
 # metric dicts drain device -> host in blocks of this many steps
 _METRIC_SYNC_STEPS = 16
@@ -158,7 +163,13 @@ def _run_epoch_loop(loader, step_fn, state_or_params, *, weights,
     wait_t = step_t = 0.0
     t0 = time.perf_counter()
     t_wait = time.perf_counter()
-    for i, batch in enumerate(loader):
+    batches = enumerate(loader)
+    while True:
+        with span("loader.wait"):
+            got = next(batches, None)
+        if got is None:
+            break
+        i, batch = got
         wait_t += time.perf_counter() - t_wait
         t_step = time.perf_counter()
         gen = torch.Generator(device=draw_device).manual_seed(
@@ -170,13 +181,15 @@ def _run_epoch_loop(loader, step_fn, state_or_params, *, weights,
             m = step_fn(batch, gen, weights, curriculum)
         pending.append((float(valid_counts[i]), m))
         if len(pending) >= _METRIC_SYNC_STEPS:
-            _drain_metrics(pending, agg)
+            with span("epoch.fetch_metrics"):
+                _drain_metrics(pending, agg)
         n_steps += 1
         n_weight += float(valid_counts[i])
         step_t += time.perf_counter() - t_step
         t_wait = time.perf_counter()
 
-    _drain_metrics(pending, agg)
+    with span("epoch.fetch_metrics"):
+        _drain_metrics(pending, agg)
     out = {k: v / max(n_weight, 1.0) for k, v in agg.items()}
     out["n_steps"] = n_steps
     out["epoch_time_s"] = time.perf_counter() - t0

@@ -1,16 +1,19 @@
-"""Opt-in profiling: the ``--profile`` flag, step timers, a profiler trace.
+"""Opt-in profiling: the ``--profile`` flag and a profiler trace.
 
 Port of ``forest_tpu/training/representation/profiling.py``. With the flag
 on, the CLI wraps its first trained epoch in :func:`maybe_trace`, which
-here is a ``torch.profiler`` trace of the host and (on a card) the device,
-written as a Chrome trace (``trace.json``) into the given directory.
+here is a ``torch.profiler`` trace of the host's threads (the loader's
+workers among them) and, on a card, the device, written as a Chrome trace
+(``trace.json``) into the given directory. The program's spans
+(``utils.spans``: the loop's, the loader's, the step's stages, the
+encoders', the feature builds) are ranges in it, on the device events'
+clock.
 """
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 _PROFILE = False
 
@@ -32,6 +35,7 @@ def maybe_trace(logdir: Optional[str]):
         yield
         return
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -39,32 +43,11 @@ def maybe_trace(logdir: Optional[str]):
         acts.append(ProfilerActivity.CUDA)
     out = Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
+    # every thread, so the loader workers' spans are in the trace too
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
         yield
     prof.export_chrome_trace(str(out / "trace.json"))
-
-
-class StepTimers:
-    """mark_* timers (the legacy vqvae.train_debug_utils contract)."""
-
-    def __init__(self):
-        self.t: Dict[str, float] = {}
-        self._last = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        now = time.perf_counter()
-        self.t[name] = self.t.get(name, 0.0) + (now - self._last)
-        self._last = now
-
-    mark_load = lambda self: self.mark("load")          # noqa: E731
-    mark_fwd = lambda self: self.mark("fwd")            # noqa: E731
-    mark_bwd = lambda self: self.mark("bwd")            # noqa: E731
-    mark_opt = lambda self: self.mark("opt")            # noqa: E731
-
-    def consume(self) -> Dict[str, float]:
-        out, self.t = self.t, {}
-        self._last = time.perf_counter()
-        return out
 
 
 def print_device_summary() -> str:
@@ -87,5 +70,5 @@ def print_device_summary() -> str:
     return out
 
 
-__all__ = ["set_profile", "is_profiling", "maybe_trace", "StepTimers",
+__all__ = ["set_profile", "is_profiling", "maybe_trace",
            "print_device_summary"]

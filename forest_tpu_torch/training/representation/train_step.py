@@ -22,6 +22,12 @@ the ranks in one all-reduce, the metrics synced (counts summed, the rest
 averaged), and the non-finite test reads the averaged loss and gradient
 norm, so every rank takes the same skip decision.
 
+Each stage is a span (``utils.spans``) while a profiler runs:
+``step.forward`` (the decode and ``process_batch``), ``step.backward``
+(the gradients), ``step.allreduce`` (with ``group``) and ``step.update``
+(the norm, the finite test's host synchronisation, AdamW); the eval step
+has ``step.forward``.
+
 Both steps decode a compact-wire batch first (``data.wire.
 decode_wire_batch``, the identity on a plain batch); a batch on another
 device than the model's raises. Not here: the JAX package's microbatched
@@ -39,6 +45,7 @@ from torch import nn
 from forest_tpu_torch.data.wire import decode_wire_batch
 from forest_tpu_torch.parallel import dp
 from forest_tpu_torch.utils import flax_bridge
+from forest_tpu_torch.utils.spans import span
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -162,21 +169,27 @@ def make_train_step(process_batch: Callable, optimizer: AdamW,
     def train_step(state: FRLTrainState, batch, generator, weights,
                    curriculum, draws=None):
         names, params = zip(*state.model.named_parameters())
-        batch = decode_wire_batch(batch, params[0].device)
-        loss, metrics = process_batch(batch, generator, weights, curriculum,
-                                      True, draws)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with span("step.forward"):
+            batch = decode_wire_batch(batch, params[0].device)
+            loss, metrics = process_batch(batch, generator, weights,
+                                          curriculum, True, draws)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
         if group is not None:
-            # the loss rides in the gradients' buffer: one all-reduce
-            *grads, loss = dp.all_reduce_mean(grads + [loss.detach()], group)
-            metrics = dp.sync_metrics(metrics, group)
-        grads = dict(zip(names, grads))
-        gnorm = global_norm(grads.values())
-        finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(gnorm))
-        if finite:
-            apply_update(state, optimizer, grads, gnorm)
+            with span("step.allreduce"):
+                # the loss rides in the gradients' buffer: one all-reduce
+                *grads, loss = dp.all_reduce_mean(grads + [loss.detach()],
+                                                  group)
+                metrics = dp.sync_metrics(metrics, group)
+        with span("step.update"):
+            grads = dict(zip(names, grads))
+            gnorm = global_norm(grads.values())
+            finite = bool(torch.isfinite(loss.detach())
+                          & torch.isfinite(gnorm))
+            if finite:
+                apply_update(state, optimizer, grads, gnorm)
         state.step += 1
         metrics["grad_norm"] = gnorm
         metrics["skipped"] = torch.as_tensor(int(not finite),
@@ -189,9 +202,9 @@ def make_train_step(process_batch: Callable, optimizer: AdamW,
 def make_eval_step(process_batch: Callable, group=None) -> Callable:
     def eval_step(batch, generator, weights, curriculum,
                   draws: Optional[object] = None):
-        batch = decode_wire_batch(batch, getattr(process_batch, "device",
-                                                 None))
-        with torch.no_grad():
+        with span("step.forward"), torch.no_grad():
+            batch = decode_wire_batch(batch, getattr(process_batch,
+                                                     "device", None))
             _, metrics = process_batch(batch, generator, weights,
                                        curriculum, False, draws)
         return dp.sync_metrics(metrics, group)

@@ -125,6 +125,7 @@ def test_scan_sees_the_whole_port():
                  "forest_tpu_torch/data/data_bundle.py",
                  "forest_tpu_torch/data/wire.py",
                  "forest_tpu_torch/utils/flops.py",
+                 "forest_tpu_torch/utils/spans.py",
                  "chip_smoke.py",
                  "scripts/torch_op_timing.py",
                  "examples/torch_example_losses.py",

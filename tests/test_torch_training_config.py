@@ -189,10 +189,6 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path):
         profiling.set_profile(False)
     events = json.loads((out / "trace.json").read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name")) for e in events)
-    timers = profiling.StepTimers()
-    timers.mark_load()
-    timers.mark_fwd()
-    assert set(timers.consume()) == {"load", "fwd"}
     summary = profiling.print_device_summary()
     if not torch.cuda.is_available():
         assert summary == "cuda: none"
