@@ -12,8 +12,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA sources of ``forest_tpu_torch/csrc``: ``bank_mix_fwd``
    (K1), ``bank_mix_bwd`` (K2), ``scatter_add_rows`` (K3), ``vq_assign``
-   (K4 ``vq_core`` and K5 ``vq_assign``) and ``vq_variants`` (K6, K7), one
-   ``nvcc`` each, all started together;
+   (K4 ``vq_core`` and K5 ``vq_assign``), ``vq_variants`` (K6, K7) and
+   ``feature_build`` (K8), one ``nvcc`` each, all started together;
 3. hold K1 to its plain PyTorch version on the card at the serving shape
    [8, 256, 256, 48] (R = 4, coarse dilation 3) in float32 and bfloat16 and
    at an odd shape [2, 33, 37, 5], and time both; the same at the training
@@ -307,8 +307,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
     same stats); and ``scripts/train_gpu.sh vq`` on configs/vae_v0.yaml,
     one epoch of a few steps, then the same command for two epochs, which
     must resume at epoch 1. Printed: each example's seconds on the card
-    and on the CPU, the stats step's, the launcher's, and K1-K4's
-    launches, with the card's name and power limit.
+    and on the CPU, the stats step's, the launcher's, and K1-K4's and
+    K8's launches, with the card's name and power limit;
+23. run after phase 5 (``check_feature_build``): hold K8
+    (``ops.feature_build``, each ``FeatureBuilder`` build in one launch) to
+    its plain version, the composed build ``feature_build.compose``, on the
+    card at the benchmark cells' shapes: the bindings of
+    ``gpu_bench/configs/frl_v1.json`` with random stats and SPD
+    covariances, B 8 of 256 x 256 x 15 with NaNs and zeroed uint8 masks;
+    the type build [8, 256, 256, 34], the whitened phase build [8, 15, 256,
+    256, 13] (14 channels read), and at 300 anchors a sample the FRL step's
+    ``infonce_type_spectral`` and ``phase_ccdc``: masks bit for bit, values
+    within 4 ulps (4 (C + 1) whitened, ``FEATURE_ULPS``), one launch a build
+    counted as the kernel's; the two full builds timed against the composed
+    build and their bytes bound (``feature_build_cost``).
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -335,7 +347,10 @@ tools and the encoder on the built cube; for the
 VQ kernels the VQ-VAE's CLI run, the op called directly in its timed runs,
 and the variant sweep; for K1-K4 the data-parallel ranks of phase 19; for
 K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder;
-for K1-K4 phase 22's examples),
+for K1-K4 phase 22's examples; for K8 each path that builds features:
+serving, the FRL step, the CLI, each eval, clustering and diagnostics
+tool, the encoder on the built cube, the data-parallel ranks, the wire
+epoch and the examples),
 error, times, and its bound: the larger of its declared bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 declared FLOPs over 67 TFLOP/s (float32 outside the tensor cores; 989
@@ -344,9 +359,10 @@ rates as ``utils/flops.BOUND_PEAK_FLOPS`` rounds them. The declared
 cost is the kernel's ``*_cost`` function
 (``ops.smoothing.bank_mix_cost`` and ``bank_mix_bwd_cost``,
 ``ops.scatter.scatter_add_rows_cost``, ``ops.vq.vq_core_cost`` and
-``vq_assign_cost``, ``ops.vq_variants.assign_cost``), which is also the
+``vq_assign_cost``, ``ops.vq_variants.assign_cost``,
+``ops.feature_build.feature_build_cost``), which is also the
 FLOP formula of the kernel's ``torch.library`` op. The
-script fails if any of the seven was launched no time on its path. The last
+script fails if any of the eight was launched no time on its path. The last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result. It imports ``torch`` and ``forest_tpu_torch`` only: nothing of
@@ -383,10 +399,12 @@ KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
                         "scripts/bench_vq_variants.py:33"),  # _kernel
     "vq_variant_cols": ("forest_tpu_torch/csrc/vq_variants.cu",
                         "scripts/bench_vq_variants.py:76"),  # _kernel_t
+    "feature_build": ("forest_tpu_torch/csrc/feature_build.cu",
+                      "none: the JAX builder is XLA-fused jnp"),
 }
 # the .cu files behind KERNELS, one nvcc each (two kernels share a source)
 LIBRARIES = ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows", "vq_assign",
-             "vq_variants")
+             "vq_variants", "feature_build")
 # a blosc-LZ4 v2 cube written by the JAX package's cube_v2 writer
 # (tests/torch_fixtures/make_blosc_lz4_v2.py): 64 x 64, chunks of 32 x 32
 FIXTURE = "tests/torch_fixtures/blosc_lz4_v2"
@@ -449,6 +467,16 @@ SCATTER_BOUND = 1e-5
 # came out equal to the last bit); the bounds leave a 100-fold margin.
 STEP_LOSS_REL_BOUND = 1e-5
 STEP_GNORM_REL_BOUND = 1e-4
+# K8 at the benchmark cells' shapes: their bindings (34 type channels; 13
+# phase channels of 14, whitened), B 8 at 256 x 256 x T_STEPS, 300 anchors.
+# Kernel vs the composed build, elementwise, in float32 ulps of
+# max(|composed|, 1): 4 (the composed build divides by a scalar as a
+# product with its reciprocal, the kernel truly); whitened 4 (C + 1) ulps
+# of max(sum_c |W_dc xc_c|, 1), a C-term dot product in another order over
+# inputs 4 ulps apart. Masks bit for bit.
+FEATURE_BINDINGS = "gpu_bench/configs/frl_v1.json"
+FEATURE_BATCH, FEATURE_ANCHORS = 8, 300
+FEATURE_ULPS = 4
 
 
 def log(msg: str) -> None:
@@ -669,6 +697,135 @@ def check_scatter_exact(generator) -> dict:
     if not (res["exact"] and res["bad_index_raises"]
             and res["bad_rows_left_out"]):
         raise AssertionError(f"scatter_add_rows, exact data: {res}")
+    return res
+
+
+def feature_inputs(generator):
+    """-> (FeatureBuilder, groups): the cells' bindings with random stats
+    and SPD covariances (no identity anywhere), and a batch on the card:
+    float groups normal with 1 % NaN, uint8 masks with 10 % zeros."""
+    import numpy as np
+    import torch
+    from forest_tpu_torch.data import parse_bindings
+    from forest_tpu_torch.data.feature_builder import FeatureBuilder
+    raw = json.loads((ROOT / FEATURE_BINDINGS).read_text())["bindings"]
+    bindings = parse_bindings(raw)
+    rng = np.random.default_rng(SEED)
+    stats = {}
+    for name, fc in bindings.features.items():
+        stats[name] = {ref: {"mean": float(rng.normal(0, 0.3)),
+                             "sd": float(rng.uniform(0.5, 2.0)),
+                             "q25": -0.6, "q50": 0.1, "q75": 0.7,
+                             "min": -3.0, "max": 3.0}
+                       for ref in fc.channels}
+        if fc.covariance.calculate:
+            d = len(fc.channels)
+            a = rng.normal(size=(d, d))
+            stats[name]["__covariance__"] = {
+                "matrix": (a @ a.T / d + np.eye(d)).tolist(),
+                "mean": rng.normal(0, 0.2, size=d).tolist()}
+    groups = {}
+    for name, g in raw["dataset"].items():
+        shape = (FEATURE_BATCH,) + ((T_STEPS,) if "T" in g["dim"] else ()) \
+            + (256, 256, len(g["channels"]))
+        draw = torch.rand(shape, device="cuda", generator=generator)
+        if g["type"] == "uint8":
+            groups[name] = (draw < 0.9).to(torch.uint8)
+        elif g["type"] == "float32":
+            x = torch.randn(shape, device="cuda", generator=generator)
+            groups[name] = torch.where(draw < 0.01, float("nan"), x)
+    return FeatureBuilder(bindings, stats), groups
+
+
+def check_feature_build(generator) -> dict:
+    """K8 against its plain version (``ops.feature_build.compose``) on the
+    card: the embedding cell's two builds and the FRL step's two builds at
+    anchors, masks bit for bit, values within FEATURE_ULPS (whitened
+    FEATURE_ULPS (C + 1)), one launch a build through the kernel; the full
+    builds timed against the composed build and their bytes bound."""
+    import torch
+    from forest_tpu_torch.data.feature_builder import WHITEN_CLIP
+    from forest_tpu_torch.ops import feature_build as fbk
+    fb, groups = feature_inputs(generator)
+    anchors = torch.randint(0, 256, (FEATURE_BATCH, FEATURE_ANCHORS, 2),
+                            device="cuda", generator=generator)
+    res = {"kernel": "feature_build", "dtype": "float32", "shape": [],
+           "builds": {}, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": "bytes"}
+    bad = []
+    for feature, coords in (("type_encoder_input", None),
+                            ("phase_ccdc", None),
+                            ("infonce_type_spectral", anchors),
+                            ("phase_ccdc", anchors)):
+        plan = fb._plan(feature)
+        gl = [groups[g] for g in plan.groups]
+
+        def build():
+            if coords is None:
+                return fb.build_feature(feature, groups)
+            return fb.build_feature_at_locations(feature, groups, coords)
+
+        build()                                   # the table made
+        torch.cuda.synchronize()
+        launches = fbk.feature_build.launches
+        kernel_builds = fbk.feature_build.builds["kernel"]
+        x, m = build()
+        torch.cuda.synchronize()
+        one_launch = (fbk.feature_build.launches == launches + 1
+                      and fbk.feature_build.builds["kernel"]
+                      == kernel_builds + 1)
+        _, _, w, mu = fb._table(feature, plan, x.device)
+
+        def plain(w=w, mu=mu):
+            return fbk.compose(gl, plan.channels, w, mu, plan.temporal,
+                               WHITEN_CLIP, coords)
+
+        want, want_m = plain()
+        if w is None:
+            scale, ulps = want.abs().clamp(min=1.0), FEATURE_ULPS
+        else:
+            unwhitened, _ = plain(None, None)
+            xc = torch.where(want_m & torch.isfinite(unwhitened),
+                             unwhitened - mu, torch.zeros_like(unwhitened))
+            scale = torch.einsum("...c,dc->...d", xc.abs(),
+                                 w.abs()).clamp(min=1.0)
+            ulps = FEATURE_ULPS * (w.shape[0] + 1)
+            del unwhitened, xc
+        gap = torch.nan_to_num(x - want).abs()
+        entry = {"shape": list(x.shape), "whitened": w is not None,
+                 "masks_equal": bool(torch.equal(m, want_m)),
+                 "nans_equal": bool(torch.equal(torch.isnan(x),
+                                                torch.isnan(want))),
+                 "one_launch": one_launch, "ulps": ulps,
+                 "max_abs_err": float(gap.max()),
+                 "share_of_bound": float((gap / (ulps * 2.0 ** -23 * scale))
+                                         .max())}
+        del gap, scale, want, want_m
+        if coords is None:
+            read = sum(g.numel() * g.element_size() for g in gl)
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                fbk.feature_build_cost(read, x.numel() // x.shape[-1],
+                                       x.shape[-1], w is not None))
+            entry["ms"] = cuda_ms(build)
+            entry["plain_ms"] = cuda_ms(plain, runs=5)
+            res["shape"].append(entry["shape"])
+            for k in ("ms", "plain_ms", "bound_ms"):
+                res[k] += entry[k]
+            if entry["bound_by"] != "bytes":
+                res["bound_by"] = entry["bound_by"]
+        del x, m
+        key = feature + ("" if coords is None else "_at_anchors")
+        res["builds"][key] = entry
+        res["max_abs_err"] = max(res["max_abs_err"], entry["max_abs_err"])
+        if not (entry["masks_equal"] and entry["nans_equal"]
+                and entry["one_launch"] and entry["share_of_bound"] <= 1.0):
+            bad.append(key)
+    torch.cuda.empty_cache()
+    log(f"kernel check {json.dumps(res)}")
+    if bad:
+        raise AssertionError(f"feature_build disagrees with its plain "
+                             f"version or took another path at {bad}: "
+                             f"{res}")
     return res
 
 
@@ -1141,6 +1298,7 @@ def serve_and_check(ckpt: Path, bpath: Path, patches,
         outs, lat_t, wall_t = burst(base, bodies, type_only)
         outs_m, lat_m, wall_m = burst(base, bodies, mixed)
         launches = read_launches()["bank_mix_fwd"]
+        note_k8("serving")
         batches = svc.batches_run
     finally:
         srv.shutdown()
@@ -1324,6 +1482,7 @@ def check_fixture() -> dict:
 
 def _wrappers() -> dict:
     """Kernel name -> the wrapper that counts its launches."""
+    from forest_tpu_torch.ops import feature_build as fbk
     from forest_tpu_torch.ops import scatter as sc
     from forest_tpu_torch.ops import smoothing as sm
     from forest_tpu_torch.ops import vq
@@ -1331,7 +1490,8 @@ def _wrappers() -> dict:
     return {"bank_mix_fwd": sm.bank_mix, "bank_mix_bwd": sm.bank_mix_bwd,
             "scatter_add_rows": sc.scatter_add_rows, "vq_core": vq.vq_core,
             "vq_assign": vq.vq_assign, "vq_variant_rows": vv.make_assign,
-            "vq_variant_cols": vv.make_assign_t}
+            "vq_variant_cols": vv.make_assign_t,
+            "feature_build": fbk.feature_build}
 
 
 def reset_launches() -> None:
@@ -1341,6 +1501,22 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
+
+
+# K8's launches by main path where the phase reads K1's alone: each added
+# just after the path's run, the counts set to 0 just before it
+K8_NOTED = ("serving", "eval.export", "eval.embed_locations",
+            "eval.train_probe", "eval.phase_probe", "clustering.gmm",
+            "clustering.landscape", "clustering.fia",
+            "diagnostics.visualize", "diagnostics.phase_diagnostics",
+            "cube_building")
+K8_BY_PATH: dict = {}
+
+
+def note_k8(path: str) -> None:
+    """Add K8's launches since the last ``reset_launches`` to ``path``."""
+    K8_BY_PATH[path] = K8_BY_PATH.get(path, 0) + \
+        read_launches()["feature_build"]
 
 
 EVT_CODES = (7001, 7002, 7003)      # synthetic_frl_batch's EVT codes
@@ -1552,7 +1728,8 @@ def train_and_check(device: str = "cuda") -> dict:
                    "skipped"])))
         check_step_metrics(metrics, weights, f"train step {i}")
     launches = {k: v for k, v in read_launches().items()
-                if k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")}
+                if k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
+                         "feature_build")}
     if any(n < n_steps for n in launches.values()):
         raise AssertionError(f"{n_steps} train steps launched {launches}")
     if state.step != n_steps or state.count != n_steps:
@@ -1714,7 +1891,7 @@ def cli_train_and_check(tmp: Path, device: str = "cuda") -> dict:
                               "--profile"])
     launches = {k: v for k, v in read_launches().items()
                 if k in ("bank_mix_fwd", "bank_mix_bwd",
-                         "scatter_add_rows")}
+                         "scatter_add_rows", "feature_build")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card \
         else None
     history = first["history"] + resumed["history"]
@@ -1952,6 +2129,7 @@ def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     out = tmp / "embeddings.zarr"
     _, sec, k1 = _timed(export_embeddings.main,
                         common + ["--out", str(out), "--phase"])
+    note_k8("eval.export")
     ds = ForestDatasetV2(parse_bindings(str(bpath)), split=None,
                          patch_size=256)
     n_patches = len(ds.patches)
@@ -2011,6 +2189,7 @@ def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
         common + ["--locations", str(locs), "--output",
                   str(tmp / "points_emb.csv"), "--patch-size", "256",
                   "--evt-source", "static_categorical.evt"])
+    note_k8("eval.embed_locations")
     ok = [r for r in rows if r.get("valid")]
     families = ("pixel_row", "pixel_col", "split", "ysfc", "evt",
                 "x_type_0", "x_phase_0", f"z_type_{zt_dim - 1}",
@@ -2043,6 +2222,7 @@ def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
         train_probe.main,
         common + ["--target-feature", "infonce_type_spectral", "--epochs",
                   str(EVAL_PROBE_EPOCHS), "--output-dir", str(pdir)])
+    note_k8("eval.train_probe")
     hist = probe["history"]
     if len(hist) != EVAL_PROBE_EPOCHS or not all(
             np.isfinite(h["val_r2"]) for h in hist) or not all(
@@ -2061,6 +2241,7 @@ def eval_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
         phase_probe.main,
         common + ["--design", "full", "--output",
                   str(tmp / "phase_probe.json")])
+    note_k8("eval.phase_probe")
     w_shape = list(pp["weights"].shape)
     n_ch = w_shape[1] if len(w_shape) == 2 else -1
     r2 = {s_: pp["metrics"][s_]["r2_total"] for s_ in ("train", "val")}
@@ -2318,6 +2499,7 @@ def clustering_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     lines, sec, k1 = _printed(gmm.main, common + [
         "--output", str(tmp / "gmm.npz"),
         "--evt-source", "static_categorical.evt"])
+    note_k8("clustering.gmm")
     summary, npz = json.loads(lines[-1]), np.load(tmp / "gmm.npz")
     n_b = batches("train", 128, 0.3)
     if summary["best_k"] not in (4, 8, 16, 24, 32) or not all(
@@ -2339,6 +2521,7 @@ def clustering_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     lines, sec, k1 = _printed(lc.main, common + [
         "--output-dir", str(odir),
         "--dynamic-var-threshold", DYNAMIC_VAR_THRESHOLD])
+    note_k8("clustering.landscape")
     tj = json.loads((odir / "taxonomy.json").read_text())
     with open(odir / "type_gmm.pkl", "rb") as f:
         type_pkl = pickle.load(f)
@@ -2392,6 +2575,7 @@ def clustering_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     rows, sec, k1 = _timed(embed_locations.main, common + [
         "--locations", str(locs), "--output", str(tmp / "fia_emb.csv"),
         "--patch-size", "256", "--evt-source", "static_categorical.evt"])
+    note_k8("clustering.fia")
     table = fia_table(tmp, rows, zt_dim, hw)
     res["fia"] = {"embed_seconds": sec, "k1_launches": k1,
                   "points": len(rows)}
@@ -2758,6 +2942,7 @@ def diagnostics_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
     # (a) the figure sheets, both families
     lines, sec, k1 = _printed(visualize.main, common + dev_arg + [
         "--out", str(tmp / "visualize"), "--probe", "--forest-diag"])
+    note_k8("diagnostics.visualize")
     wrote = [ln for ln in lines if ln.startswith("wrote ")]
     skipped = sum("skipped the figure" in ln for ln in lines)
     if not wrote or (device == "cuda" and k1 < 4 * 4):
@@ -2774,6 +2959,8 @@ def diagnostics_tools_and_check(tmp: Path, device: str = "cuda") -> dict:
         out = tmp / f"phase_diagnostics_{dev}"
         lines, sec, k1 = _printed(phase_diagnostics.main, common + [
             "--out", str(out), "--probe", "--device", dev])
+        if dev == device:
+            note_k8("diagnostics.phase_diagnostics")
         runs[dev] = (out, sec, k1,
                      json.loads((out / "summary.json").read_text()))
     (cout, csec, ck1, csum), (pout, psec, _, psum) = runs[device], \
@@ -3397,6 +3584,7 @@ def cube_k1_vs_plain(cube: Path, tmp: Path, device: str = "cuda") -> dict:
     reset_launches()
     kernel = encode_type(batch).float()
     launches = read_launches()["bank_mix_fwd"]
+    note_k8("cube_building")
     spatial.bank_mix = sm.bank_mix_reference
     try:
         plain = encode_type(batch).float()
@@ -4441,7 +4629,8 @@ def dp_two_ranks(work: Path, device: str = "cuda") -> dict:
     missing = [(r["rank"], i, name) for r in ranks
                for i, n in enumerate(r["frl"]["launches"])
                for name in ("bank_mix_fwd", "bank_mix_bwd",
-                            "scatter_add_rows") if n[name] <= 0]
+                            "scatter_add_rows", "feature_build")
+               if n[name] <= 0]
     missing += [(r["rank"], i, "vq_core") for r in ranks
                 for i, n in enumerate(r["vq"]["launches"]) if n <= 0]
     if missing and torch.device(device).type == "cuda":   # the CPU: plain
@@ -4473,7 +4662,8 @@ def dp_two_ranks(work: Path, device: str = "cuda") -> dict:
     res["vq"]["rank_step_ms"] = [r["vq"]["ms"] for r in ranks]
     res["launches"] = {
         name: sum(n[name] for r in ranks for n in r["frl"]["launches"])
-        for name in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")}
+        for name in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
+                     "feature_build")}
     res["launches"]["vq_core"] = sum(n for r in ranks
                                      for n in r["vq"]["launches"])
     return res
@@ -4775,7 +4965,8 @@ def wire_frl_and_check(tmp: Path, device: str = "cuda") -> dict:
         problems.append(f"loss_total {rel:.3g} from the plain epoch's")
     if n != WIRE_FRL_BATCHES or any(
             on["launches"][k] < _launches_want(n, device)
-            for k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")):
+            for k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
+                      "feature_build")):
         problems.append(f"{n} steps launched {on['launches']}")
 
     ds = ctx["ds_train"]
@@ -4807,7 +4998,8 @@ def wire_frl_and_check(tmp: Path, device: str = "cuda") -> dict:
         raise AssertionError(f"wire FRL epoch: {problems}")
     return {"n_steps": n, "loss_total_rel": rel, "loss_rel": losses,
             "launches": {k: on["launches"][k] for k in (
-                "bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows")},
+                "bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
+                "feature_build")},
             "epoch_s": {"wire": on["metrics"]["epoch_time_s"],
                         "plain": off["metrics"]["epoch_time_s"]},
             "wait_s": {"wire": on["metrics"]["wait_s"],
@@ -5310,6 +5502,7 @@ def main() -> int:
     scat = check_scatter(SCATTER_SHAPE, gen, timed=True)      # phase 5
     check_scatter(SCATTER_ODD_SHAPE, gen, timed=False)
     check_scatter_exact(gen)
+    feat = check_feature_build(gen)                           # phase 23
 
     with tempfile.TemporaryDirectory() as d:                  # phase 6
         ckpt, bpath = write_checkpoint(Path(d))
@@ -5379,6 +5572,12 @@ def main() -> int:
         f"{TRAIN_STEPS_TIMED} (min {train['step_ms_min']:.1f}, max "
         f"{train['step_ms_max']:.1f}), peak {train['peak_memory_gb']:.2f} "
         f"GB; EVT + diag step loss_evt {evt_diag['loss_evt']:.4g} ({card})")
+    log("K8 feature_build at B " + str(FEATURE_BATCH) + ": " + ", ".join(
+        f"{k} {v['ms']:.4f} ms (composed {v['plain_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f})" for k, v in feat["builds"].items()
+        if "ms" in v) + "; largest error " + ", ".join(
+        f"{k} {v['share_of_bound']:.3g} of {v['ulps']} ulps"
+        for k, v in feat["builds"].items()) + f" ({card})")
     log(f"K4 vq_core at {list(VQ_SHAPE)}: {core['ms']:.4f} ms, plain "
         f"{core['plain_ms']:.4f} ms; at {list(VQ_STEP_SHAPE)} "
         f"{core['step_shape_device_ms']:.4f} ms on the device in "
@@ -5424,7 +5623,7 @@ def main() -> int:
         f"{cli['cube_s']:.2f} s, stats in {cli['stats_s']:.2f} s; host "
         f"syncs per step (profiled epoch): "
         + ", ".join(f"{k} {v:.1f}" for k, v in cli["syncs_per_step"].items())
-        + f"; peak {cli['peak_memory_gb']:.2f} GB; K1/K2/K3 launches "
+        + f"; peak {cli['peak_memory_gb']:.2f} GB; K1/K2/K3/K8 launches "
         f"{cli['launches']} in {cli['train_steps']} train and "
         f"{cli['val_steps']} val steps ({card})")
     one = cli["one_batch"]
@@ -5605,10 +5804,10 @@ def main() -> int:
         f"{examples['stats_256']['cpu_seconds']:.2f} s); {LAUNCHER} vq "
         f"{examples['launcher']['seconds']:.2f} s for {LAUNCHER_STEPS} "
         f"steps, resumed {examples['launcher']['resume_seconds']:.2f} s; "
-        f"phase 22 {examples['seconds']:.2f} s; K1-K4 launches "
+        f"phase 22 {examples['seconds']:.2f} s; K1-K4 and K8 launches "
         + json.dumps({k: examples["launches"][k] for k in
                       ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
-                       "vq_core")}) + f" ({card})")
+                       "vq_core", "feature_build")}) + f" ({card})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     steps = train["launches"]
     ex_launches = examples["launches"]
@@ -5697,6 +5896,14 @@ def main() -> int:
                      bf16_mxu_ms_by_tile=variants["vq_variant_cols"][
                          "bf16_mxu_ms_by_tile"],
                      tiles=variants["vq_variant_cols"]["tiles"]),
+        kernel_entry("feature_build", feat,
+                     dict({p_: 0 for p_ in K8_NOTED}, **K8_BY_PATH,
+                          training=steps["feature_build"],
+                          training_cli=cli["launches"]["feature_build"],
+                          data_parallel=g2["launches"]["feature_build"],
+                          wire_frl=wf["launches"]["feature_build"],
+                          examples=ex_launches["feature_build"]),
+                     builds=feat["builds"]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     idle += [f"{k['name']} on {path}" for k in kernels[:3]
@@ -5705,6 +5912,8 @@ def main() -> int:
     idle += [f"vq_core on {path}" for path in
              ("data_parallel", "wire_vqvae", "ladder", "examples")
              if kernels[3]["launches_by_path"][path] <= 0]
+    idle += [f"feature_build on {path}" for path, n in
+             kernels[7]["launches_by_path"].items() if n <= 0]
     if idle or [k["name"] for k in kernels] != list(KERNELS):
         raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))

@@ -12,6 +12,16 @@ layout:
   stats of the JSON sidecar;
 - Mahalanobis whitening when the feature asks for covariance.
 
+The builder turns a feature's bindings and stats into a plan once, and the
+plan into a parameter table once per device (whitening matrix and mean
+included), kept there. A build is then one call of the op
+``forest_tpu_torch::feature_build`` (``ops/feature_build.py``): one kernel
+launch on a card, the plain version on the CPU, no copy from the host.
+A feature with a transform added by ``data.transforms.register`` is built
+by the same PyTorch operations one channel at a time (``feature_build.
+compose``) on every device; ``feature_build.builds`` counts the builds of
+each path.
+
 ``group_data`` values are tensors (or arrays, taken to the CPU) with any
 leading batch dims; the output lies on the device of the input. Each build
 runs in the span ``data.features`` (``utils.spans``).
@@ -20,21 +30,68 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from forest_tpu_torch.data.bindings import (BindingsConfig, FeatureConfig,
+from forest_tpu_torch.data.bindings import (BindingsConfig,
                                             NormalizationPresetConfig)
-from forest_tpu_torch.data.transforms import apply_transform
-from forest_tpu_torch.ops.whitening import apply_whitening, whitening_matrix
+from forest_tpu_torch.ops import feature_build as fbk
+from forest_tpu_torch.ops.whitening import whitening_matrix
 from forest_tpu_torch.utils.spans import span
 
 
 # the JAX FeatureBuilder's defaults, which every caller uses
 WHITEN_CLIP = 5.0
 WHITEN_EPS = 1e-6
+
+
+class _Plan(NamedTuple):
+    groups: Tuple[str, ...]                 # slot -> dataset group
+    channels: Tuple[fbk.Channel, ...]
+    temporal: bool
+    whitening: Optional[Tuple[np.ndarray, np.ndarray]]   # (W, mean)
+    kernel: bool          # the op builds it: every transform is built in
+
+
+def norm_of(preset: NormalizationPresetConfig, st: Dict[str, float]
+            ) -> fbk.Norm:
+    """A preset and a channel's stats as the float32 values the build
+    applies."""
+    t = preset.type
+    flags, off, scale, mul, add = 0, 0.0, 1.0, 1.0, 0.0
+    if t == "zscore":
+        sd = st.get("sd", 1.0)
+        flags, off, scale = fbk.AFFINE, st.get("mean", 0.0), \
+            sd if sd and sd > 1e-8 else 1.0
+    elif t == "robust_iqr":
+        iqr = st.get("q75", 1.0) - st.get("q25", 0.0)
+        flags, off, scale = fbk.AFFINE, st.get("q50", 0.0), \
+            iqr if iqr > 1e-8 else 1.0
+    elif t == "linear_rescale":
+        in_min = preset.in_min if preset.in_min is not None \
+            else st.get("min", 0.0)
+        in_max = preset.in_max if preset.in_max is not None \
+            else st.get("max", 1.0)
+        rng = in_max - in_min
+        out_min = preset.out_min if preset.out_min is not None else 0.0
+        out_max = preset.out_max if preset.out_max is not None else 1.0
+        flags = fbk.AFFINE | fbk.RESCALE
+        off, scale = in_min, rng if rng > 1e-8 else 1.0
+        mul, add = out_max - out_min, out_min
+    elif t not in ("clamp", "none", "identity"):
+        raise ValueError(f"unknown normalization type {t!r}")
+    lo = hi = None
+    if preset.clamp and preset.clamp.get("enabled", False):
+        lo, hi = preset.clamp.get("min"), preset.clamp.get("max")
+        if lo is None and hi is None:
+            raise ValueError(f"preset {preset.name!r}: a clamp needs a min "
+                             f"or a max")
+        flags |= (fbk.LO if lo is not None else 0) | \
+            (fbk.HI if hi is not None else 0)
+    return fbk.Norm(flags, *(fbk.f32(v) for v in (
+        off, scale, mul, add, lo or 0.0, hi or 0.0)))
 
 
 class FeatureBuilder:
@@ -45,135 +102,102 @@ class FeatureBuilder:
                 Path(bindings.stats.file).exists():
             stats = json.loads(Path(bindings.stats.file).read_text())
         self.stats = stats or {}
-        self._w_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
-
-    def _group_channel(self, group_data: Dict[str, torch.Tensor],
-                       ref: str) -> torch.Tensor:
-        gname, cname = ref.split(".")
-        ci = self.bindings.dataset[gname].channel_index(cname)
-        return torch.as_tensor(group_data[gname])[..., ci].float()
+        self._plans: Dict[str, _Plan] = {}
+        self._tables: Dict[Tuple[str, torch.device], Tuple] = {}
 
     def channel_stats(self, feature_name: str, channel_ref: str
                       ) -> Dict[str, float]:
         return self.stats.get(feature_name, {}).get(channel_ref, {}) or \
             self.stats.get("channels", {}).get(channel_ref, {})
 
-    def _normalize(self, x: torch.Tensor, preset: NormalizationPresetConfig,
-                   st: Dict[str, float]) -> torch.Tensor:
-        t = preset.type
-        if t == "zscore":
-            sd = st.get("sd", 1.0)
-            sd = sd if sd and sd > 1e-8 else 1.0
-            x = (x - st.get("mean", 0.0)) / sd
-        elif t == "robust_iqr":
-            iqr = st.get("q75", 1.0) - st.get("q25", 0.0)
-            iqr = iqr if iqr > 1e-8 else 1.0
-            x = (x - st.get("q50", 0.0)) / iqr
-        elif t == "linear_rescale":
-            in_min = preset.in_min if preset.in_min is not None \
-                else st.get("min", 0.0)
-            in_max = preset.in_max if preset.in_max is not None \
-                else st.get("max", 1.0)
-            rng = in_max - in_min
-            rng = rng if rng > 1e-8 else 1.0
-            out_min = preset.out_min if preset.out_min is not None else 0.0
-            out_max = preset.out_max if preset.out_max is not None else 1.0
-            x = (x - in_min) / rng * (out_max - out_min) + out_min
-        elif t not in ("clamp", "none", "identity"):
-            raise ValueError(f"unknown normalization type {t!r}")
-        if preset.clamp and preset.clamp.get("enabled", False):
-            x = torch.clamp(x, preset.clamp.get("min"),
-                            preset.clamp.get("max"))
-        return x
-
-    def _whitening_for(self, feature_name: str, fc: FeatureConfig
+    def _whitening_for(self, feature_name: str
                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        if not fc.covariance.calculate:
+        if not self.bindings.get_feature(feature_name).covariance.calculate:
             return None
-        if feature_name in self._w_cache:
-            return self._w_cache[feature_name]
         cov_entry = self.stats.get(feature_name, {}).get("__covariance__")
         if cov_entry is None:
             return None
         cov = np.asarray(cov_entry["matrix"], np.float64)
         mean = np.asarray(cov_entry.get("mean", np.zeros(cov.shape[0])),
                           np.float32)
-        w = whitening_matrix(cov, WHITEN_EPS)
-        self._w_cache[feature_name] = (w, mean)
-        return w, mean
+        return whitening_matrix(cov, WHITEN_EPS), mean
+
+    def _plan(self, feature_name: str) -> _Plan:
+        plan = self._plans.get(feature_name)
+        if plan is not None:
+            return plan
+        fc = self.bindings.get_feature(feature_name)
+        slots: Dict[str, int] = {}
+
+        def slot(ref: str) -> Tuple[int, int]:
+            gname, cname = ref.split(".")
+            ci = self.bindings.dataset[gname].channel_index(cname)
+            return slots.setdefault(gname, len(slots)), ci
+
+        chans = tuple(fbk.Channel(
+            slot(ref), slot(spec.mask) if spec.mask else None,
+            spec.transform or None,
+            norm_of(self.bindings.get_normalization_preset(spec.norm),
+                    self.channel_stats(feature_name, ref)))
+            for ref, spec in fc.channels.items())
+        plan = _Plan(tuple(slots), chans, fc.temporal,
+                     self._whitening_for(feature_name),
+                     all(fbk.kernel_takes(ch.transform) for ch in chans))
+        self._plans[feature_name] = plan
+        return plan
+
+    def _table(self, feature_name: str, plan: _Plan, device: torch.device):
+        """-> (itab, ftab, W, mean) on ``device``, made once (the tables
+        None where the op does not build the feature, W and mean None where
+        it is not whitened)."""
+        key = (feature_name, device)
+        tab = self._tables.get(key)
+        if tab is None:
+            host = (fbk.table(plan.channels) if plan.kernel
+                    else (None, None)) + (plan.whitening or (None, None))
+            with torch.inference_mode(False):
+                tab = tuple(None if a is None else torch.from_numpy(
+                    np.ascontiguousarray(a)).to(device) for a in host)
+            self._tables[key] = tab
+        return tab
+
+    def _build(self, feature_name: str, group_data: Dict[str, torch.Tensor],
+               coords: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        plan = self._plan(feature_name)
+        groups = [torch.as_tensor(group_data[g]) for g in plan.groups]
+        dev = groups[0].device
+        itab, ftab, w, mu = self._table(feature_name, plan, dev)
+        if plan.kernel:
+            fbk.feature_build.builds["kernel"] += 1
+            return fbk.feature_build(groups, itab, ftab, w, mu, coords,
+                                     plan.temporal, WHITEN_CLIP)
+        fbk.feature_build.builds["composed"] += 1
+        return fbk.compose(groups, plan.channels, w, mu, plan.temporal,
+                           WHITEN_CLIP, coords)
 
     def build_feature(self, feature_name: str,
                       group_data: Dict[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (x [.., H, W, C] or [.., T, H, W, C], bool mask of x's shape)."""
         with span("data.features"):
-            fc = self.bindings.get_feature(feature_name)
-            chans, masks = [], []
-            for ref, spec in fc.channels.items():
-                x = self._group_channel(group_data, ref)
-                valid = torch.isfinite(x)
-                if spec.mask:
-                    m = self._group_channel(group_data, spec.mask)
-                    # spatial -> temporal broadcast when needed
-                    if fc.temporal and m.dim() == x.dim() - 1:
-                        m = m.unsqueeze(-3).expand(x.shape)
-                    elif fc.temporal and m.dim() == x.dim() and \
-                            m.shape != x.shape:
-                        m = m.expand(x.shape)
-                    valid = valid & (m > 0)
-                if spec.transform:
-                    x = apply_transform(spec.transform, x)
-                    valid = valid & torch.isfinite(x)
-                preset = self.bindings.get_normalization_preset(spec.norm)
-                st = self.channel_stats(feature_name, ref)
-                zero = torch.zeros_like(x)
-                x = self._normalize(torch.where(valid, x, zero), preset, st)
-                chans.append(torch.where(valid, x, zero))
-                masks.append(valid)
-            x = torch.stack(chans, dim=-1)
-            mask = torch.stack(masks, dim=-1)
-
-            wm = self._whitening_for(feature_name, fc)
-            if wm is not None:
-                w, mean = wm
-                x = apply_whitening(x, torch.as_tensor(w, device=x.device),
-                                    torch.as_tensor(mean, device=x.device),
-                                    mask, clip=WHITEN_CLIP)
-            return x, mask
+            return self._build(feature_name, group_data, None)
 
     def build_feature_at_locations(self, feature_name: str,
                                    group_data: Dict[str, torch.Tensor],
                                    coords: torch.Tensor
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Build a feature only at sampled pixels: gather first, then the
-        same math as :meth:`build_feature`.
+        """Build a feature only at sampled pixels, each channel read there.
 
         Batched over B: ``group_data`` values are [B, H, W, C] or
         [B, T, H, W, C] (keys starting with ``__`` are skipped), ``coords``
         [B, N, 2] (row, col). Returns ([B, N, C], mask) or, for a temporal
         feature, ([B, N, T, C], mask): what indexing the full-grid build at
-        ``coords`` gives."""
+        ``coords`` gives. A negative coordinate counts from the end, as a
+        tensor index does; a pixel outside the grid gives an invalid row (x
+        0, mask False), on every device."""
         with span("data.features"):
-            coords = coords.long()
-            rows, cols = coords[..., 0], coords[..., 1]
-            sub = {}
-            for gname, arr in group_data.items():
-                if gname.startswith("__"):
-                    continue
-                a = torch.as_tensor(arr)
-                bidx = torch.arange(a.shape[0], device=a.device)[:, None]
-                r, c = rows.to(a.device), cols.to(a.device)
-                if a.dim() == 4:    # [B, H, W, C] -> [B, N, 1, C] fake grid
-                    sub[gname] = a[bidx, r, c][:, :, None, :]
-                else:               # [B, T, H, W, C] -> [B, T, N, 1, C]
-                    # [B, N, T, C]
-                    picked = a.permute(0, 2, 3, 1, 4)[bidx, r, c]
-                    sub[gname] = picked.permute(0, 2, 1, 3)[:, :, :, None, :]
-            x, mask = self.build_feature(feature_name, sub)
-            if self.bindings.get_feature(feature_name).temporal:
-                return (x[:, :, :, 0, :].permute(0, 2, 1, 3),
-                        mask[:, :, :, 0, :].permute(0, 2, 1, 3))
-            return x[:, :, 0, :], mask[:, :, 0, :]
+            return self._build(feature_name, group_data, coords)
 
 
 __all__ = ["FeatureBuilder"]

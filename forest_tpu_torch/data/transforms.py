@@ -7,7 +7,9 @@ log(x + epsilon)) and the same spec parsing. :func:`get_transform` gives a
 a tensor or a numpy array and answer in kind (the phase probe inverts
 float64 numpy columns as well as tensors on the device).
 :func:`apply_transform` makes out-of-domain inputs NaN, to be masked
-downstream.
+downstream. :func:`is_builtin` tells the transforms this module defines,
+which the feature kernel (``ops/feature_build.py``) computes itself, from
+those :func:`register` added or replaced.
 """
 from __future__ import annotations
 
@@ -74,6 +76,16 @@ _REGISTRY: Dict[str, Transform] = {t.name: t for t in (
 )}
 
 
+_BUILTIN: Dict[str, Transform] = dict(_REGISTRY)
+
+
+def is_builtin(spec: TransformSpec) -> bool:
+    """Whether this module defines the transform of ``spec`` (``log`` with
+    any epsilon included), not :func:`register`."""
+    name, _ = parse_transform_spec(spec)
+    return name == "log" or get_transform(spec) is _BUILTIN.get(name)
+
+
 def register(t: Transform) -> None:
     """Add (or replace) a named transform; :func:`get_transform` then
     finds it by name."""
@@ -107,4 +119,5 @@ def apply_transform(spec: TransformSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["Transform", "TransformSpec", "get_transform", "apply_transform",
-           "parse_transform_spec", "register", "LOG_DEFAULT_EPSILON"]
+           "parse_transform_spec", "register", "is_builtin",
+           "LOG_DEFAULT_EPSILON"]

@@ -269,7 +269,7 @@ def inverse_normalization_fn(fb, feature_name: str) -> Callable:
     back to the data's scale: un-whiten, invert the preset's affine, invert
     the channel's transform. Answers in kind, in float64."""
     fc = fb.bindings.get_feature(feature_name)
-    wm = fb._whitening_for(feature_name, fc)
+    wm = fb._whitening_for(feature_name)
     inv_w = w_mean = None
     if wm is not None:
         w, w_mean = wm

@@ -27,16 +27,16 @@ z_type through ONE :func:`~forest_tpu_torch.ops.scatter.extract_at_coords`,
 whose backward is the row scatter-add kernel; anchors then reach their
 negatives by a plain gather from the pool rows.
 
-Host synchronisations of the stages here: nine a step on a card, each a
+Host synchronisations of the stages here: three a step on a card, each a
 copy in ``aten::to`` (read by the spans of ``utils.spans`` and the Python
-frames of a traced step): six in the feature builds at the anchors
-(``data.features``: each of three whitened features copies its whitening
-matrix and mean from numpy to the card), one in the type encoder
-(``model.type_encoder``: the Sobel templates of ``ops.smoothing.
-sobel_grads``), one in ``utils.spatial.spatial_knn_pairs`` (its kNN
-offsets) and one in the demean (its [D, D] Gram to the host for ``eigh``,
-``type_local_spectral_demean``). The train step adds two: its finite test
-and its ``skipped`` flag.
+frames of a traced step): one in the type encoder (``model.type_encoder``:
+the Sobel templates of ``ops.smoothing.sobel_grads``), one in
+``utils.spatial.spatial_knn_pairs`` (its kNN offsets) and one in the
+demean (its [D, D] Gram to the host for ``eigh``,
+``type_local_spectral_demean``). The feature builds (``data.features``)
+make none: each is one kernel launch, its parameter table and whitening
+matrix kept on the card from the first build. The train step adds two:
+its finite test and its ``skipped`` flag.
 
 Randomness: a step makes six kinds of draws (anchor jitter and supplement,
 negative pool and picks, cross-batch negatives, the encoder's input and
