@@ -13,7 +13,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
 2. build the CUDA sources of ``forest_tpu_torch/csrc``: ``bank_mix_fwd``
    (K1), ``bank_mix_bwd`` (K2), ``scatter_add_rows`` (K3), ``vq_assign``
    (K4 ``vq_core`` and K5 ``vq_assign``), ``vq_variants`` (K6, K7) and
-   ``feature_build`` (K8), one ``nvcc`` each, all started together;
+   ``feature_build`` (K8) and ``tcn_block`` (K9), one ``nvcc`` each, all
+   started together;
 3. hold K1 to its plain PyTorch version on the card at the serving shape
    [8, 256, 256, 48] (R = 4, coarse dilation 3) in float32 and bfloat16 and
    at an odd shape [2, 33, 37, 5], and time both; the same at the training
@@ -320,7 +321,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
     ``infonce_type_spectral`` and ``phase_ccdc``: masks bit for bit, values
     within 4 ulps (4 (C + 1) whitened, ``FEATURE_ULPS``), one launch a build
     counted as the kernel's; the two full builds timed against the composed
-    build and their bytes bound (``feature_build_cost``).
+    build and their bytes bound (``feature_build_cost``);
+24. run after phase 23 (``check_tcn_block``): hold K9 (``ops.tcn_block``,
+    a launch a TCN block, the head and FiLM in the last) to the composed
+    dense phase pathway (``composed_phase``: the modules as
+    ``forward_phase`` ran them before) at the embedding cell's batch, x
+    [8, 15, 256, 256, 13] with the v1 model's seeded weights: the gap's
+    RMS and largest element over the composed output's within
+    ``TCN_RMS_TOL`` and ``TCN_MAX_TOL``, three launches a call through
+    the kernel; the pathway and each block timed against the composed
+    pathway and the blocks' bound (``tcn_bound_cost``: the conv's taps
+    inside the series, 8.76 ms for the three blocks on an H100). K9's
+    launches are read on every path that notes K8's, and the training
+    step must launch none (its TCN runs with autograd on).
 
 ``--profile-vq-core`` prints only phase 9's split of K4 by kernel;
 ``--profile-vq-assign`` K5's and K7's device time by kernel at the bench
@@ -350,7 +363,8 @@ K1-K3 phase 20's wire epoch, for K4 its three wire runs and the ladder;
 for K1-K4 phase 22's examples; for K8 each path that builds features:
 serving, the FRL step, the CLI, each eval, clustering and diagnostics
 tool, the encoder on the built cube, the data-parallel ranks, the wire
-epoch and the examples),
+epoch and the examples; for K9 the same tools' paths, phase 24's check and
+the FRL step's none),
 error, times, and its bound: the larger of its declared bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 declared FLOPs over 67 TFLOP/s (float32 outside the tensor cores; 989
@@ -360,9 +374,10 @@ cost is the kernel's ``*_cost`` function
 (``ops.smoothing.bank_mix_cost`` and ``bank_mix_bwd_cost``,
 ``ops.scatter.scatter_add_rows_cost``, ``ops.vq.vq_core_cost`` and
 ``vq_assign_cost``, ``ops.vq_variants.assign_cost``,
-``ops.feature_build.feature_build_cost``), which is also the
+``ops.feature_build.feature_build_cost``, ``ops.tcn_block.
+tcn_block_cost``), which is also the
 FLOP formula of the kernel's ``torch.library`` op. The
-script fails if any of the eight was launched no time on its path. The last
+script fails if any of the nine was launched no time on its path. The last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result. It imports ``torch`` and ``forest_tpu_torch`` only: nothing of
@@ -401,10 +416,12 @@ KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
                         "scripts/bench_vq_variants.py:76"),  # _kernel_t
     "feature_build": ("forest_tpu_torch/csrc/feature_build.cu",
                       "none: the JAX builder is XLA-fused jnp"),
+    "tcn_block": ("forest_tpu_torch/csrc/tcn_block.cu",
+                  "none: the JAX TCN is flax layers that XLA fuses"),
 }
 # the .cu files behind KERNELS, one nvcc each (two kernels share a source)
 LIBRARIES = ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows", "vq_assign",
-             "vq_variants", "feature_build")
+             "vq_variants", "feature_build", "tcn_block")
 # a blosc-LZ4 v2 cube written by the JAX package's cube_v2 writer
 # (tests/torch_fixtures/make_blosc_lz4_v2.py): 64 x 64, chunks of 32 x 32
 FIXTURE = "tests/torch_fixtures/blosc_lz4_v2"
@@ -477,6 +494,10 @@ STEP_GNORM_REL_BOUND = 1e-4
 FEATURE_BINDINGS = "gpu_bench/configs/frl_v1.json"
 FEATURE_BATCH, FEATURE_ANCHORS = 8, 300
 FEATURE_ULPS = 4
+# K9 at the embedding cell's batch, and its tolerance against the composed
+# pathway (tests/test_torch_tcn_kernel.py gives the reasons)
+TCN_SHAPE = (8, 15, 256, 256, 13)
+TCN_RMS_TOL, TCN_MAX_TOL = 4e-6, 1e-5
 
 
 def log(msg: str) -> None:
@@ -826,6 +847,107 @@ def check_feature_build(generator) -> dict:
         raise AssertionError(f"feature_build disagrees with its plain "
                              f"version or took another path at {bad}: "
                              f"{res}")
+    return res
+
+
+def composed_phase(model, x, zt):
+    """The dense phase pathway in modules, as ``forward_phase`` ran before
+    K9: the permute, the TCN's blocks, ``phase_head`` and FiLM, and back
+    to [B, T, H, W, Z]."""
+    from forest_tpu_torch.models.conditioning import FiLMLayer
+    b, t, h, w, c = x.shape
+    y = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c).transpose(1, 2)
+    tcn = model.phase_tcn
+    for i in range(tcn.n_blocks):
+        y = getattr(tcn, f"block_{i}")(y)
+    gamma, beta = model.phase_film(zt.reshape(b * h * w, -1))
+    z = FiLMLayer.modulate(model.phase_head(y.transpose(1, 2)),
+                           gamma[:, None, :], beta[:, None, :])
+    return z.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4)
+
+
+def tcn_bound_cost(series: int, steps: int, cin: int, dilation: int,
+                   projected: bool, head: int):
+    """The work K9 must do for one block (``utils/flops.KernelCost``): as
+    ``tcn_block_cost`` declares it, but counting only the conv's taps that
+    fall inside each series, steps + 2 max(0, steps - dilation) of the 3
+    steps a series (``gpu_bench/costs/tcn.taps_inside``): the kernel skips
+    the taps on the zero padding, which the declared cost counts as
+    ``FlopCounterMode`` does."""
+    from forest_tpu_torch.ops import tcn_block as tb
+    from forest_tpu_torch.utils.flops import KernelCost
+    inside = steps + 2 * max(0, steps - dilation)
+    macs = (inside * cin * 64 + steps * (64 * 64 + head * 64
+                                         + (cin * 64 if projected else 0)))
+    declared = tb.tcn_block_cost(series * steps, cin, 64, 3, projected, head)
+    return KernelCost(flops=2 * series * macs,
+                      bytes_accessed=declared.bytes_accessed)
+
+
+def check_tcn_block(generator) -> dict:
+    """Phase 24: K9 (``ops.tcn_block``, a launch a TCN block, the head and
+    FiLM in the last) against the composed pathway (``composed_phase``) on
+    the card at the embedding cell's batch: the v1 model's phase pathway
+    with seeded weights, x_phase [8, 15, 256, 256, 13] and z_type [8, 256,
+    256, 48] drawn on the card; the gap's RMS and largest element over the
+    composed output's within TCN_RMS_TOL and TCN_MAX_TOL, three launches a
+    call through the kernel; the pathway and each block timed against the
+    composed pathway and the blocks' bound (``tcn_bound_cost``)."""
+    import torch
+    from forest_tpu_torch.models import representation as rep
+    from forest_tpu_torch.ops import tcn_block as tb
+    model = rep.RepresentationModel(34, 13)
+    rep.init_parameters(model, torch.Generator().manual_seed(SEED))
+    model = model.to("cuda").eval()
+    b, t, h, w, c = TCN_SHAPE
+    x = torch.randn(TCN_SHAPE, device="cuda", generator=generator)
+    zt = torch.randn(b, h, w, model.z_type_dim, device="cuda",
+                     generator=generator)
+    tcn, head = model.phase_tcn, model.phase_head
+    with torch.inference_mode():
+        calls, launches = dict(tb.tcn_block.calls), tb.tcn_block.launches
+        z = model.forward_phase(x, zt)
+        torch.cuda.synchronize()
+        three = (tb.tcn_block.launches == launches + 3
+                 and tb.tcn_block.calls == dict(
+                     calls, kernel=calls["kernel"] + 3))
+        want = composed_phase(model, x, zt)
+        d = z.double() - want.double()
+        abs_err = float(d.abs().max())
+        rms = float(d.norm() / want.double().norm())
+        worst = abs_err / float(want.double().abs().max())
+        del d, want
+        gamma, beta = model.phase_film(zt.reshape(b * h * w, -1))
+        y0 = tcn.block_0.run_kernel(x)
+        y1 = tcn.block_1.run_kernel(y0)
+        runs = {"block_0": lambda: tcn.block_0.run_kernel(x),
+                "block_1": lambda: tcn.block_1.run_kernel(y0),
+                "block_2_head_film": lambda: tcn.block_2.run_kernel(
+                    y1, head, gamma, beta)}
+        blocks = {}
+        for i, (name, fn) in enumerate(runs.items()):
+            blk = getattr(tcn, f"block_{i}")
+            bms, by = bound_ms(tcn_bound_cost(
+                b * h * w, t, blk.conv.in_channels, blk.conv.dilation[0],
+                blk.projection is not None, 8 if i == 2 else 0))
+            blocks[name] = {"ms": cuda_ms(fn), "bound_ms": bms,
+                            "bound_by": by}
+        del y0, y1
+        res = {"kernel": "tcn_block", "dtype": "float32",
+               "shape": list(TCN_SHAPE), "launches": tb.tcn_block.launches,
+               "three_launches": three, "rms_rel_err": rms,
+               "max_rel_err": worst, "max_abs_err": abs_err,
+               "ms": cuda_ms(lambda: model.forward_phase(x, zt)),
+               "plain_ms": cuda_ms(lambda: composed_phase(model, x, zt),
+                                   runs=5),
+               "bound_ms": sum(v["bound_ms"] for v in blocks.values()),
+               "bound_by": "operations", "blocks": blocks}
+    del x, zt, z
+    torch.cuda.empty_cache()
+    log(f"kernel check {json.dumps(res)}")
+    if not (three and rms <= TCN_RMS_TOL and worst <= TCN_MAX_TOL):
+        raise AssertionError(f"tcn_block disagrees with the composed "
+                             f"pathway or took another path: {res}")
     return res
 
 
@@ -1485,13 +1607,14 @@ def _wrappers() -> dict:
     from forest_tpu_torch.ops import feature_build as fbk
     from forest_tpu_torch.ops import scatter as sc
     from forest_tpu_torch.ops import smoothing as sm
+    from forest_tpu_torch.ops import tcn_block as tb
     from forest_tpu_torch.ops import vq
     from forest_tpu_torch.ops import vq_variants as vv
     return {"bank_mix_fwd": sm.bank_mix, "bank_mix_bwd": sm.bank_mix_bwd,
             "scatter_add_rows": sc.scatter_add_rows, "vq_core": vq.vq_core,
             "vq_assign": vq.vq_assign, "vq_variant_rows": vv.make_assign,
             "vq_variant_cols": vv.make_assign_t,
-            "feature_build": fbk.feature_build}
+            "feature_build": fbk.feature_build, "tcn_block": tb.tcn_block}
 
 
 def reset_launches() -> None:
@@ -1503,20 +1626,23 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-# K8's launches by main path where the phase reads K1's alone: each added
-# just after the path's run, the counts set to 0 just before it
+# K8's and K9's launches by main path where the phase reads K1's alone:
+# each added just after the path's run, the counts set to 0 just before it
 K8_NOTED = ("serving", "eval.export", "eval.embed_locations",
             "eval.train_probe", "eval.phase_probe", "clustering.gmm",
             "clustering.landscape", "clustering.fia",
             "diagnostics.visualize", "diagnostics.phase_diagnostics",
             "cube_building")
 K8_BY_PATH: dict = {}
+K9_BY_PATH: dict = {}
 
 
 def note_k8(path: str) -> None:
-    """Add K8's launches since the last ``reset_launches`` to ``path``."""
-    K8_BY_PATH[path] = K8_BY_PATH.get(path, 0) + \
-        read_launches()["feature_build"]
+    """Add K8's and K9's launches since the last ``reset_launches`` to
+    ``path``."""
+    n = read_launches()
+    K8_BY_PATH[path] = K8_BY_PATH.get(path, 0) + n["feature_build"]
+    K9_BY_PATH[path] = K9_BY_PATH.get(path, 0) + n["tcn_block"]
 
 
 EVT_CODES = (7001, 7002, 7003)      # synthetic_frl_batch's EVT codes
@@ -1729,8 +1855,8 @@ def train_and_check(device: str = "cuda") -> dict:
         check_step_metrics(metrics, weights, f"train step {i}")
     launches = {k: v for k, v in read_launches().items()
                 if k in ("bank_mix_fwd", "bank_mix_bwd", "scatter_add_rows",
-                         "feature_build")}
-    if any(n < n_steps for n in launches.values()):
+                         "feature_build", "tcn_block")}
+    if any(n < n_steps for k, n in launches.items() if k != "tcn_block"):
         raise AssertionError(f"{n_steps} train steps launched {launches}")
     if state.step != n_steps or state.count != n_steps:
         raise AssertionError(f"state after {n_steps} steps: step "
@@ -5503,6 +5629,7 @@ def main() -> int:
     check_scatter(SCATTER_ODD_SHAPE, gen, timed=False)
     check_scatter_exact(gen)
     feat = check_feature_build(gen)                           # phase 23
+    tcnk = check_tcn_block(gen)                               # phase 24
 
     with tempfile.TemporaryDirectory() as d:                  # phase 6
         ckpt, bpath = write_checkpoint(Path(d))
@@ -5578,6 +5705,13 @@ def main() -> int:
         if "ms" in v) + "; largest error " + ", ".join(
         f"{k} {v['share_of_bound']:.3g} of {v['ulps']} ulps"
         for k, v in feat["builds"].items()) + f" ({card})")
+    log(f"K9 tcn_block at {list(TCN_SHAPE)}: the dense phase pathway "
+        f"{tcnk['ms']:.3f} ms (composed {tcnk['plain_ms']:.3f}, bound "
+        f"{tcnk['bound_ms']:.3f}), by block " + ", ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for k, v in tcnk["blocks"].items())
+        + f"; gap {tcnk['rms_rel_err']:.3g} rms, {tcnk['max_rel_err']:.3g} "
+        f"max of the composed pathway's ({card})")
     log(f"K4 vq_core at {list(VQ_SHAPE)}: {core['ms']:.4f} ms, plain "
         f"{core['plain_ms']:.4f} ms; at {list(VQ_STEP_SHAPE)} "
         f"{core['step_shape_device_ms']:.4f} ms on the device in "
@@ -5904,6 +6038,13 @@ def main() -> int:
                           wire_frl=wf["launches"]["feature_build"],
                           examples=ex_launches["feature_build"]),
                      builds=feat["builds"]),
+        kernel_entry("tcn_block", tcnk,
+                     dict({p_: 0 for p_ in K8_NOTED}, **K9_BY_PATH,
+                          kernel_check=tcnk["launches"],
+                          training=steps["tcn_block"]),
+                     rms_rel_err=tcnk["rms_rel_err"],
+                     max_rel_err=tcnk["max_rel_err"],
+                     blocks=tcnk["blocks"]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     idle += [f"{k['name']} on {path}" for k in kernels[:3]
@@ -5914,6 +6055,10 @@ def main() -> int:
              if kernels[3]["launches_by_path"][path] <= 0]
     idle += [f"feature_build on {path}" for path, n in
              kernels[7]["launches_by_path"].items() if n <= 0]
+    idle += [f"tcn_block on {path}" for path in ("serving", "eval.export")
+             if kernels[8]["launches_by_path"][path] <= 0]
+    if kernels[8]["launches_by_path"]["training"] != 0:
+        raise AssertionError("the training step launched K9")
     if idle or [k["name"] for k in kernels] != list(KERNELS):
         raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))

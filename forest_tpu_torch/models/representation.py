@@ -8,7 +8,9 @@ Port of ``forest_tpu/models/representation.py`` (checkpoint schema VERSION
 - phase pathway: TCNEncoder (pooling 'none') -> Dense bottleneck
   ``phase_head`` -> FiLM(gamma, beta from z_type), either at sampled pixels
   (``forward_phase_at_locations``) or densely (``forward_phase``,
-  [B, T, H, W, C_phase] -> [B, T, H, W, z_phase_dim]);
+  [B, T, H, W, C_phase] -> [B, T, H, W, z_phase_dim]); in inference on a
+  card, a launch of ``ops.tcn_block`` a TCN block, the head and FiLM in the
+  last (``_phase``, the one place that picks the path);
 - the optional SimCLR projection head on z_type (``project_type``, the
   identity when the config disables it, as the shipped v1 config does).
 
@@ -135,11 +137,10 @@ class RepresentationModel(nn.Module):
         False`` turns the TCN's dropout on, with ``draws`` from
         ``phase_tcn.draw`` (required then)."""
         with span("model.phase_encoder"):
-            h = self.phase_head(self.phase_tcn(
-                x_phase_pixels, deterministic=deterministic,
-                draws=draws))                                 # [N, T, zp]
             gamma, beta = self.phase_film(z_type_pixels)      # [N, zp]
-            z = FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
+            z, h = self._phase(x_phase_pixels, gamma, beta,
+                               pre_film=return_pre_film,
+                               deterministic=deterministic, draws=draws)
         out = (z,)
         if return_film:
             out = out + (gamma, beta)
@@ -150,12 +151,42 @@ class RepresentationModel(nn.Module):
     def forward_phase(self, x_phase: torch.Tensor,
                       z_type: torch.Tensor) -> torch.Tensor:
         """Dense phase forward: [B, T, H, W, C] + [B, H, W, zt] ->
-        [B, T, H, W, zp]."""
+        [B, T, H, W, zp]. On the op's kernel (inference on a card) the
+        blocks read x_phase in place and the last writes z_phase, the head
+        and FiLM applied, straight into [B, T, H, W, zp]."""
         b, t, h, w, c = x_phase.shape
-        flat = x_phase.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-        zt = z_type.reshape(b * h * w, -1)
-        z = self.forward_phase_at_locations(flat, zt)
-        return z.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4)
+        with span("model.phase_encoder"):
+            gamma, beta = self.phase_film(z_type.reshape(b * h * w, -1))
+            return self._phase(x_phase, gamma, beta)[0]
+
+    def _phase(self, x: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor, *, pre_film: bool = False,
+               deterministic: bool = True,
+               draws: Optional[Tuple[torch.Tensor, ...]] = None):
+        """The TCN, ``phase_head`` and FiLM on x [N, T, C] or [B, T, H, W,
+        C] (N = B H W), with FiLM's gamma and beta [N, zp] -> (z_phase,
+        the pre-FiLM h) in x's layout; h is None unless ``pre_film`` (taken
+        on [N, T, C] only). The one place that picks the path: in inference
+        on a card (``TCNEncoder.takes_kernel``) a launch of ``ops.
+        tcn_block`` a block, the head and FiLM in the last, which raises
+        for a block no kernel takes; else the modules."""
+        tcn = self.phase_tcn
+        if tcn.takes_kernel(x, deterministic):
+            if not pre_film:
+                return tcn.run_kernel(x, self.phase_head, gamma, beta), None
+            h = tcn.run_kernel(x, self.phase_head)
+            return FiLMLayer.modulate(h, gamma[:, None, :],
+                                      beta[:, None, :]), h
+        shape = x.shape
+        if x.dim() == 5:
+            b, t, hh, w, c = shape
+            x = x.permute(0, 2, 3, 1, 4).reshape(b * hh * w, t, c)
+        h = self.phase_head(tcn(x, deterministic=deterministic,
+                                draws=draws))                 # [N, T, zp]
+        z = FiLMLayer.modulate(h, gamma[:, None, :], beta[:, None, :])
+        if len(shape) == 5:
+            z = z.reshape(b, hh, w, t, -1).permute(0, 3, 1, 2, 4)
+        return z, (h if pre_film else None)
 
 
 @torch.no_grad()

@@ -18,6 +18,14 @@ the kept ones scaled by 1 / (1 - rate). The mask of a block is ``u < 1 -
 rate`` for a uniform draw ``u`` [N, 1, C_in] (the JAX layout), one per block
 (:meth:`TCNEncoder.draw`), given by the caller so that a test can feed
 another framework's numbers.
+
+:meth:`TCNEncoder.run_kernel` runs each block as one launch of the op
+``ops.tcn_block`` (a kernel of ``csrc/tcn_block.cu`` on a card), reading x
+in its own layout, with a head and FiLM in the last block; the phase
+pathway (``RepresentationModel``) takes it in inference on a card
+(:meth:`TCNEncoder.takes_kernel`: a CUDA float32 input, autograd off, no
+dropout). Everywhere else, training included, the modules run.
+``tcn_block.calls`` counts the blocks of each path.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from torch import nn
 
 from forest_tpu_torch.models.conv2d_encoder import fit_groups
+from forest_tpu_torch.ops.tcn_block import kernel_takes, tcn_block
 from forest_tpu_torch.utils.draws import uniform
 
 
@@ -60,6 +69,24 @@ class GatedResidualBlock(nn.Module):
         gate = torch.sigmoid(self.gate(h))
         return gate * torch.relu(h) + (1.0 - gate) * residual
 
+    def run_kernel(self, x: torch.Tensor, head: Optional[nn.Linear] = None,
+                   gamma: Optional[torch.Tensor] = None,
+                   beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block through the op (``ops.tcn_block``) on x [N, T, C_in]
+        or [B, T, H, W, C_in]; with ``head``, its output (and FiLM's
+        ``gamma * z + beta``, gamma and beta [N, Z]) in place of the
+        block's."""
+        proj = self.projection
+        return tcn_block(
+            x, self.conv.weight, self.conv.bias, self.norm.weight,
+            self.norm.bias, self.gate.weight, self.gate.bias,
+            None if proj is None else proj.weight,
+            None if proj is None else proj.bias,
+            None if head is None else head.weight,
+            None if head is None else head.bias, gamma, beta,
+            dilation=self.conv.dilation[0], num_groups=self.norm.num_groups,
+            eps=self.norm.eps)
+
 
 class TCNEncoder(nn.Module):
     def __init__(self, in_channels: int, channels: Sequence[int],
@@ -91,6 +118,30 @@ class TCNEncoder(nn.Module):
         return tuple(uniform((n, 1, c), generator, device)
                      for c in self.in_widths)
 
+    def takes_kernel(self, x: torch.Tensor,
+                     deterministic: bool = True) -> bool:
+        """Whether the blocks run on the op's kernel for ``x`` now: a CUDA
+        float32 input, autograd off, no dropout. The op then launches or
+        raises, whatever the shapes (``tcn_block.kernel_args``)."""
+        return ((deterministic or self.dropout_rate <= 0.0)
+                and kernel_takes(x))
+
+    def run_kernel(self, x: torch.Tensor, head: Optional[nn.Linear] = None,
+                   gamma: Optional[torch.Tensor] = None,
+                   beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The blocks through the op, a launch each (pooling 'none'): x
+        [N, T, C] -> [N, T, C_out], [B, T, H, W, C] -> [B, T, H, W, C_out]
+        (a series-major view); with ``head`` (and FiLM's gamma and beta
+        [N, Z], N in (b, h, w) order) in the last block, its output [N, T,
+        Z] or [B, T, H, W, Z], contiguous."""
+        for i in range(self.n_blocks):
+            last = i == self.n_blocks - 1
+            x = getattr(self, f"block_{i}").run_kernel(
+                x, head if last else None, gamma if last else None,
+                beta if last else None)
+        tcn_block.calls["kernel"] += self.n_blocks
+        return x
+
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, *,
                 deterministic: bool = True,
@@ -118,6 +169,7 @@ class TCNEncoder(nn.Module):
         y = x.transpose(1, 2)
         for i in range(self.n_blocks):
             y = getattr(self, f"block_{i}")(y, draws[i])
+        tcn_block.calls["composed"] += self.n_blocks
         if self.pooling == "stats":
             if mask is not None:
                 m = mask.to(y.dtype).unsqueeze(1)  # [N, 1, T]
